@@ -1,0 +1,69 @@
+"""Rotary position embedding (split halves): CUDA kernel
+(``csrc/rope.cu``) and its plain PyTorch version.
+
+Replaces ``paddle_tpu/ops/pallas/rope.py:48 _rope_call``. Layout x
+[B, T, H, D], tables cos/sin [T, D/2] in fp32. ``sign=-1`` rotates by the
+negative angle, which is the backward of the forward rotation (as
+``rope.py:84`` uses it).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from paddle_tpu_torch.kernels import _support
+
+__all__ = ["apply_rotary", "apply_rotary_reference"]
+
+_NAME = "rope"
+
+
+def apply_rotary_reference(x: torch.Tensor, cos: torch.Tensor,
+                           sin: torch.Tensor,
+                           sign: float = 1.0) -> torch.Tensor:
+    """Plain version: rotate split halves in fp32, cast back."""
+    d2 = x.shape[-1] // 2
+    xf = x.float()
+    x1, x2 = xf[..., :d2], xf[..., d2:]
+    c = cos.float()[None, :, None, :]
+    s = sin.float()[None, :, None, :] * sign
+    return torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1).to(x.dtype)
+
+
+@functools.cache
+def _entry():
+    fn = _support.library(_NAME).ptt_rope
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [
+        ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def apply_rotary(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
+                 sign: float = 1.0) -> torch.Tensor:
+    """Rotate x [B, T, H, D] by the [T, D/2] tables; returns a new
+    tensor of x's type."""
+    if x.ndim != 4 or x.shape[-1] % 2:
+        raise ValueError(f"apply_rotary: x must be [B, T, H, D] with even "
+                         f"D, got {tuple(x.shape)}")
+    B, T, H, D = x.shape
+    if cos.shape != (T, D // 2) or sin.shape != cos.shape:
+        raise ValueError(f"apply_rotary: tables {tuple(cos.shape)}/"
+                         f"{tuple(sin.shape)} do not match [T, D/2] = "
+                         f"[{T}, {D // 2}]")
+    if not _support.use_kernel(x):
+        return apply_rotary_reference(x, cos, sin, sign)
+    code = _support.dtype_code(x)
+    xc = x.contiguous()
+    cf = cos.to(device=x.device, dtype=torch.float32).contiguous()
+    sf = sin.to(device=x.device, dtype=torch.float32).contiguous()
+    out = torch.empty_like(xc)
+    err = _entry()(xc.data_ptr(), cf.data_ptr(), sf.data_ptr(),
+                   out.data_ptr(), B, T, H, D, float(sign), code,
+                   _support.stream_of(xc))
+    _support.check(err, _NAME)
+    _support.LAUNCHES[_NAME] += 1
+    return out

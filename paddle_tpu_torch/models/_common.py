@@ -1,0 +1,75 @@
+"""Static KV cache pieces shared by the attention families — the float
+layout of ``paddle_tpu/models/_common.py:40-182``."""
+
+from __future__ import annotations
+
+import torch
+
+from paddle_tpu_torch import kernels
+from paddle_tpu_torch.kernels.decode_attention import \
+    decode_attention_reference
+from paddle_tpu_torch.nn import functional as F
+
+__all__ = ["cached_attention", "apply_cache_writes", "init_kv_cache"]
+
+
+def cached_attention(q, k, v, cache, index, layer: int = 0):
+    """Attention of a chunk q [B, T, Hq, D] (k/v [B, T, Hkv, D]) against
+    the static cache. ``cache`` holds the FULL stacked read-only buffers
+    ``(k_buf, v_buf)`` [L, B, Hkv, S, D] and ``layer`` is this block's
+    layer id; the layer's cache holds positions ``[0, index)``. The chunk
+    is not written here: it is returned as the payload
+    ``(k [B, Hkv, T, D], v)`` in the cache's type, for
+    ``apply_cache_writes`` after the forward.
+
+    - prefill (``index`` 0 or None): causal attention over the raw chunk
+      through the port's own ``scaled_dot_product_attention`` (the flash
+      kernel on CUDA);
+    - decode (T == 1): the decode kernel, reading the stacked buffers in
+      place;
+    - a multi-token chunk at ``index > 0`` (chunked prefill, not on the
+      ``generate`` path): the plain einsum version on CPU tensors (the JAX
+      package's fallback arm). No kernel covers it yet, so on CUDA tensors
+      it raises rather than run the plain version on the card.
+
+    Returns ``(out [B, T, Hq, D], payload)``."""
+    B, T, Hq, D = q.shape
+    kt = k.transpose(1, 2)                              # [B, Hkv, T, D]
+    vt = v.transpose(1, 2)
+    payload = (kt.to(cache[0].dtype), vt.to(cache[1].dtype))
+    if not index:
+        return F.scaled_dot_product_attention(q, k, v, causal=True), payload
+    if T == 1:
+        out = kernels.decode_attention.decode_attention(q, kt, vt, cache,
+                                                        layer, index)
+    elif kernels._support.use_kernel(q):
+        raise NotImplementedError(
+            f"cached_attention: a {T}-token chunk at index {index} (chunked "
+            "prefill) has no CUDA kernel yet")
+    else:
+        out = decode_attention_reference(q, kt, vt, cache, layer, index)
+    return out, payload
+
+
+def apply_cache_writes(cache, payload, index):
+    """Write the stacked per-layer chunk payloads ([L, B, Hkv, T, D]) into
+    the cache at positions ``[index, index + T)``. IN PLACE: the buffers
+    of ``cache`` are modified (JAX returns new buffers; here the cache is
+    one allocation for the whole generation). Returns ``cache``."""
+    start = int(index or 0)
+    for buf, x in zip(cache, payload):
+        buf[:, :, :, start:start + x.shape[3]] = x.to(buf.dtype)
+    return cache
+
+
+def init_kv_cache(num_layers, batch_size, max_len, num_kv_heads, head_dim,
+                  dtype, device):
+    """``([L, B, Hkv, S, D], [L, B, Hkv, S, D])`` zeros on ``device``.
+    Batch stays on axis 1 and heads ahead of sequence, as in the JAX
+    package. Float types only: the int8 layout is later work."""
+    if not dtype.is_floating_point:
+        raise ValueError(f"cache dtype {dtype} unsupported: the port has "
+                         "the float cache layout only so far")
+    shape = (num_layers, batch_size, num_kv_heads, max_len, head_dim)
+    return (torch.zeros(shape, dtype=dtype, device=device),
+            torch.zeros(shape, dtype=dtype, device=device))

@@ -1,0 +1,91 @@
+"""The port stands alone: ``paddle_tpu_torch`` and ``chip_smoke.py`` import
+neither ``jax`` nor the JAX package, and the entry points run on the GPU
+unless the caller asks for the CPU — on this host, which has no CUDA,
+they raise."""
+
+import ast
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+from paddle_tpu_torch import device as port_device
+from paddle_tpu_torch.kernels import _support
+from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+
+pytestmark = pytest.mark.port
+
+ROOT = Path(__file__).resolve().parent.parent
+PORT_FILES = sorted((ROOT / "paddle_tpu_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py"]
+FORBIDDEN = ("jax", "paddle_tpu", "jaxlib")
+
+
+def _forbidden(module: str) -> bool:
+    top = module.split(".")[0]
+    return top in FORBIDDEN
+
+
+def test_import_pulls_in_no_jax():
+    code = ("import sys, paddle_tpu_torch, paddle_tpu_torch.models, "
+            "paddle_tpu_torch.bridge, paddle_tpu_torch.kernels\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            f"{FORBIDDEN!r})\n"
+            "print(','.join(bad))")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == ""
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_source_names_no_jax(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names = [node.module or ""]
+        elif isinstance(node, ast.Call) and getattr(
+                node.func, "attr", getattr(node.func, "id", "")) in (
+                "import_module", "__import__") and node.args and \
+                isinstance(node.args[0], ast.Constant):
+            names = [str(node.args[0].value)]
+        else:
+            continue
+        assert not any(_forbidden(n) for n in names), (path, names)
+
+
+def test_every_kernel_has_a_source():
+    for name in _support.KERNELS:
+        assert (_support.CSRC / f"{name}.cu").is_file(), name
+
+
+def test_default_device_raises_without_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("this host has a GPU: the default device is valid")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        port_device.resolve_device()
+    with pytest.raises(RuntimeError):
+        port_device.resolve_device("cuda")
+    with pytest.raises(RuntimeError):
+        LlamaForCausalLM(LlamaConfig.tiny())
+    with pytest.raises(RuntimeError):
+        port_device.make_generator(0)
+
+
+def test_explicit_cpu_builds_on_cpu():
+    m = LlamaForCausalLM(LlamaConfig.tiny(), device="cpu")
+    assert all(p.device.type == "cpu" for p in m.parameters())
+    assert m.init_cache(1, 4)[0].device.type == "cpu"
+
+
+def test_cpu_run_builds_nothing():
+    """A CPU generate runs the plain versions only: no kernel counted."""
+    _support.reset_launches()
+    m = LlamaForCausalLM(LlamaConfig.tiny(), device="cpu")
+    m.generate(torch.zeros((1, 4), dtype=torch.long), 3)
+    assert all(n == 0 for n in _support.LAUNCHES.values())
