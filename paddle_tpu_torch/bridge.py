@@ -17,7 +17,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["from_jax_state_dict", "to_jax_state_dict", "load_jax_state_dict"]
+from paddle_tpu_torch.optimizer.optimizers import AdamWState
+
+__all__ = ["from_jax_state_dict", "to_jax_state_dict", "load_jax_state_dict",
+           "grads_state_dict", "adamw_state_from_jax", "adamw_state_to_jax"]
 
 _STACKED = "blocks.block."
 
@@ -77,3 +80,41 @@ def load_jax_state_dict(model: torch.nn.Module, state: dict) -> None:
             src = torch.from_numpy(np.ascontiguousarray(
                 arr.astype(np.float32)))
             param.copy_(src.to(param.dtype))
+
+
+def grads_state_dict(model: torch.nn.Module) -> dict:
+    """The port's gradients as ``{parameter name: numpy array}`` (fp32),
+    zeros where a parameter has none."""
+    return {name: (p.grad if p.grad is not None else torch.zeros_like(p))
+            .detach().float().cpu().numpy()
+            for name, p in model.named_parameters()}
+
+
+def adamw_state_from_jax(count: int, mu: dict, nu: dict,
+                         model: torch.nn.Module) -> AdamWState:
+    """The JAX package's ``AdamState`` (its ``count`` and the flat JAX-named
+    ``mu``/``nu``) as the port's ``AdamWState`` on the model's device, in
+    fp32. Every name must match the model's parameters."""
+    L = model.config.num_layers
+    own = dict(model.named_parameters())
+    moments = []
+    for tree in (mu, nu):
+        mapped = from_jax_state_dict(tree, L)
+        if set(mapped) != set(own):
+            raise KeyError(f"bridge: moments for "
+                           f"{sorted(set(mapped) ^ set(own))} do not match "
+                           "the model's parameters")
+        moments.append({
+            name: torch.from_numpy(np.ascontiguousarray(
+                mapped[name], dtype=np.float32)).to(own[name].device)
+            for name in own})
+    return AdamWState(int(count), *moments)
+
+
+def adamw_state_to_jax(state: AdamWState, num_layers: int):
+    """The port's ``AdamWState`` as ``(count, mu, nu)`` with flat JAX-named
+    numpy moments (layers restacked)."""
+    def flat(moments):
+        return to_jax_state_dict({n: t.detach().cpu().numpy()
+                                  for n, t in moments.items()}, num_layers)
+    return state.count, flat(state.mu), flat(state.nu)

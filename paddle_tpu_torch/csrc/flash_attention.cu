@@ -20,9 +20,8 @@
 //   fp32 registers: no [T, T] array exists anywhere. The k loop stops at
 //   the diagonal of the tile's last row. Ragged T is masked, so no
 //   T % block gate. This is the simple form: CUDA-core FMAs, no wgmma,
-//   TMA or pipelining yet (later work).
-#include <atomic>
-
+//   TMA or pipelining yet (later work). The backward kernels are in
+//   flash_attention_bwd.cu.
 #include "common.cuh"
 
 namespace {
@@ -31,7 +30,6 @@ constexpr int kBQ = 64;
 constexpr int kBK = 64;
 constexpr int kWarps = 4;
 constexpr int kRows = kBQ / kWarps;  // q rows per warp
-constexpr int kMaxDevices = 64;
 
 template <int D>
 constexpr size_t smem_bytes() {
@@ -156,23 +154,10 @@ int launch(const void* q, const void* k, const void* v, void* o, void* lse,
            int b, int tq, int tk, int hq, int hkv, float scale, int causal,
            cudaStream_t s) {
   constexpr size_t bytes = smem_bytes<D>();
-  // Raise the dynamic shared memory limit once per device and
-  // instantiation (not on every launch, so that launches can be captured
-  // into a CUDA graph). The attribute belongs to the current device, so
-  // the flag is kept per device; two threads racing here both set it,
-  // which is harmless.
-  static std::atomic<bool> smem_attr_set[kMaxDevices];
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
+  static std::atomic<bool> smem_raised[ptt::kMaxDevices];
+  cudaError_t err = ptt::raise_smem_limit(flash_fwd_kernel<T, D>, (int)bytes,
+                                          smem_raised);
   if (err != cudaSuccess) return (int)err;
-  if (dev < 0 || dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
-  if (!smem_attr_set[dev].load(std::memory_order_acquire)) {
-    err = cudaFuncSetAttribute(
-        flash_fwd_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)bytes);
-    if (err != cudaSuccess) return (int)err;
-    smem_attr_set[dev].store(true, std::memory_order_release);
-  }
   dim3 grid((tq + kBQ - 1) / kBQ, hq, b);
   flash_fwd_kernel<T, D><<<grid, kWarps * 32, bytes, s>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),

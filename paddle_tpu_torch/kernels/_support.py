@@ -1,8 +1,8 @@
 """Build, dispatch and launch counting for the port's CUDA kernels — the
 counterpart of ``paddle_tpu/ops/pallas/_support.py``.
 
-Build. Each ``paddle_tpu_torch/csrc/<name>.cu`` compiles on its own into
-``paddle_tpu_torch/_build/<name>-<hash>.so`` with
+Build. Each source ``paddle_tpu_torch/csrc/<source>.cu`` compiles on its
+own into ``paddle_tpu_torch/_build/<source>-<hash>.so`` with
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
          -Xcompiler -fPIC
@@ -17,10 +17,16 @@ Nothing builds at import: the first launch of a kernel builds it.
 Dispatch. A wrapper hands a CPU tensor to its plain PyTorch version and
 launches its kernel on a CUDA tensor. Inside ``force_reference()`` CUDA
 tensors take the plain version too (``chip_smoke.py`` runs the same path
-both ways on the card). There is no fallback: a refused launch raises.
+both ways on the card). The ``autograd.Function``s decide once, in their
+forward, and their backward follows that decision: a forward run inside
+``force_reference()`` is differentiated by the plain backward as well.
+There is no fallback: a refused launch raises.
 
 Counting. ``LAUNCHES[name]`` is a plain int that the wrapper raises by
-one where it launches its kernel, and nowhere else.
+one where it launches its kernel, and nowhere else. A kernel's name is
+its counter's; ``SOURCES`` maps it to the ``.cu`` file that holds it
+(one source may hold several kernels, e.g. the forward and backward of
+RMSNorm).
 """
 
 from __future__ import annotations
@@ -35,11 +41,22 @@ from pathlib import Path
 
 import torch
 
-__all__ = ["KERNELS", "LAUNCHES", "reset_launches", "force_reference",
-           "use_kernel", "build", "library", "check", "stream_of",
-           "dtype_code"]
+__all__ = ["KERNELS", "SOURCES", "LAUNCHES", "reset_launches",
+           "force_reference", "use_kernel", "build", "library", "check",
+           "stream_of", "compute_dtype", "dtype_code"]
 
-KERNELS = ("rms_norm", "rope", "flash_attention", "decode_attention")
+# kernel (launch counter) -> the csrc/<source>.cu that holds it
+SOURCES = {
+    "rms_norm": "rms_norm",
+    "rms_norm_bwd": "rms_norm",
+    "rope": "rope",
+    "flash_attention": "flash_attention",
+    "flash_attention_bwd_dq": "flash_attention_bwd",
+    "flash_attention_bwd_dkdv": "flash_attention_bwd",
+    "decode_attention": "decode_attention",
+    "adamw": "adamw",
+}
+KERNELS = tuple(SOURCES)
 LAUNCHES = {name: 0 for name in KERNELS}
 
 _PKG = Path(__file__).resolve().parent.parent
@@ -81,6 +98,12 @@ def use_kernel(x: torch.Tensor) -> bool:
     return not _force_reference
 
 
+def compute_dtype(t: torch.Tensor) -> torch.dtype:
+    """The type the plain versions compute in: fp32 for bf16 and fp32
+    tensors (as the kernels do), float64 for float64 (``gradcheck``)."""
+    return torch.promote_types(t.dtype, torch.float32)
+
+
 def dtype_code(t: torch.Tensor) -> int:
     """The C side's type tag: 0 float32, 1 bfloat16."""
     if t.dtype == torch.float32:
@@ -112,21 +135,23 @@ def _nvcc() -> str:
                        "a machine with the CUDA toolkit")
 
 
-def _target(name: str) -> Path:
+def _target(source: str) -> Path:
     h = hashlib.sha1()
-    for part in (CSRC / f"{name}.cu",) + tuple(CSRC / n for n in _HEADERS):
+    for part in (CSRC / f"{source}.cu",) + tuple(CSRC / n for n in _HEADERS):
         h.update(part.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"{name}-{h.hexdigest()[:12]}.so"
+    return BUILD_DIR / f"{source}-{h.hexdigest()[:12]}.so"
 
 
 def build(names=KERNELS) -> dict[str, Path]:
-    """Compile the named kernels that are not built yet, one ``nvcc`` per
-    source, all started together; raise with the compiler's output if
-    any fails. Each ``<name>.log`` keeps ``ptxas``' register and shared
-    memory report. Returns name → shared library path."""
+    """Compile the sources of the named kernels that are not built yet,
+    one ``nvcc`` per source, all started together; raise with the
+    compiler's output if any fails. Each ``<source>.log`` keeps
+    ``ptxas``' register and shared memory report. Returns source →
+    shared library path."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    targets = {n: _target(n) for n in names}
+    targets = {s: _target(s) for s in dict.fromkeys(SOURCES[n]
+                                                     for n in names)}
     procs = {}
     for name, out in targets.items():
         if out.exists():
@@ -150,9 +175,11 @@ def build(names=KERNELS) -> dict[str, Path]:
 
 
 def library(name: str) -> ctypes.CDLL:
-    """The loaded shared library of kernel ``name``, built on first use."""
-    lib = _libs.get(name)
+    """The loaded shared library that holds kernel ``name``, built on
+    first use."""
+    source = SOURCES[name]
+    lib = _libs.get(source)
     if lib is None:
-        lib = ctypes.CDLL(str(build((name,))[name]))
-        _libs[name] = lib
+        lib = ctypes.CDLL(str(build((name,))[source]))
+        _libs[source] = lib
     return lib

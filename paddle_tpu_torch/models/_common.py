@@ -1,5 +1,6 @@
-"""Static KV cache pieces shared by the attention families — the float
-layout of ``paddle_tpu/models/_common.py:40-182``."""
+"""Pieces shared by the decoder-only families: the causal-LM loss
+(``paddle_tpu/models/_common.py:10-28``) and the static KV cache in the
+float layout (``:40-182``)."""
 
 from __future__ import annotations
 
@@ -10,7 +11,20 @@ from paddle_tpu_torch.kernels.decode_attention import \
     decode_attention_reference
 from paddle_tpu_torch.nn import functional as F
 
-__all__ = ["cached_attention", "apply_cache_writes", "init_kv_cache"]
+__all__ = ["causal_lm_loss", "cached_attention", "apply_cache_writes",
+           "init_kv_cache"]
+
+
+def causal_lm_loss(model, input_ids, labels, ignore_index: int = -100):
+    """Next-token loss of a decoder-only model: the logits ``[:, :-1]`` go
+    to fp32 and meet ``labels[:, 1:]`` in ``cross_entropy``. That is the
+    dense head (``cfg.lm_head_mode == "dense"``); the JAX package's other
+    modes fuse the head projection into the loss and take its weight,
+    and raise here until the fused-head slice is ported."""
+    F.check_head_mode(model.config.lm_head_mode)
+    logits = model(input_ids)
+    return F.cross_entropy(logits[:, :-1].float(), labels[:, 1:],
+                           ignore_index=ignore_index)
 
 
 def cached_attention(q, k, v, cache, index, layer: int = 0):

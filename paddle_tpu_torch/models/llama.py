@@ -1,10 +1,12 @@
 """Llama-2 family (RMSNorm + RoPE + GQA + SwiGLU) — the port of
-``paddle_tpu/models/llama.py`` for serving.
+``paddle_tpu/models/llama.py`` for serving and training.
 
 Layers are an ``nn.ModuleList`` of blocks (the JAX package scans one
-stacked block; ``bridge.py`` unstacks its weights). Weights are
-``[in, out]`` as in the JAX package (see ``nn/common.py``). The model is
-built directly on its device in its dtype from the caller's generator.
+stacked block; ``bridge.py`` unstacks its weights). With ``cfg.remat``
+and gradients enabled, each block recomputes its forward in backward
+(``nn/scan.py``). Weights are ``[in, out]`` as in the JAX package (see
+``nn/common.py``). The model is built directly on its device in its
+dtype from the caller's generator.
 """
 
 from __future__ import annotations
@@ -18,10 +20,11 @@ from torch import nn
 from paddle_tpu_torch.device import dtype_of, make_generator, resolve_device
 from paddle_tpu_torch.models._common import (apply_cache_writes,
                                              cached_attention,
-                                             init_kv_cache)
+                                             causal_lm_loss, init_kv_cache)
 from paddle_tpu_torch.nn import functional as F
 from paddle_tpu_torch.nn.common import Embedding, Linear
 from paddle_tpu_torch.nn.norm import RMSNorm
+from paddle_tpu_torch.nn.scan import run_blocks
 
 __all__ = ["LlamaConfig", "LlamaAttention", "LlamaMLP", "LlamaBlock",
            "LlamaForCausalLM"]
@@ -40,6 +43,11 @@ class LlamaConfig:
     rms_eps: float = 1e-5
     tie_embeddings: bool = False
     dtype: str = "bfloat16"
+    remat: bool = True
+    remat_policy: str = "nothing_saveable"
+    # LM-head loss path: only "dense" (matmul + cross entropy) is ported;
+    # "fused", "chunked" and "auto" raise (see nn.functional)
+    lm_head_mode: str = "dense"
     init_std: float = 0.02
 
     @classmethod
@@ -59,7 +67,7 @@ class LlamaConfig:
                    intermediate_size=hidden_size * 4 * 2 // 3 // 8 * 8 or 32,
                    num_layers=num_layers, num_heads=num_heads,
                    num_kv_heads=num_kv_heads, max_seq_len=max_seq_len,
-                   dtype="float32", **kw)
+                   dtype="float32", remat=False, **kw)
 
     @property
     def head_dim(self) -> int:
@@ -191,11 +199,14 @@ class LlamaForCausalLM(nn.Module):
         return x @ self.embed.weight.T
 
     def hidden_states(self, input_ids):
-        """Trunk (embed → blocks → final norm) without the head."""
+        """Trunk (embed → blocks → final norm) without the head. Under
+        ``cfg.remat`` with gradients enabled, each block recomputes its
+        forward in backward."""
+        cfg = self.config
         x = self.embed(input_ids)
         rope = self._rope(input_ids.shape[1], 0)
-        for block in self.blocks:
-            x = block(x, rope=rope)
+        x = run_blocks(self.blocks, x, rope, remat=cfg.remat,
+                       policy=cfg.remat_policy)
         return self.norm(x)
 
     def forward(self, input_ids):
@@ -228,6 +239,12 @@ class LlamaForCausalLM(nn.Module):
         cache = apply_cache_writes(cache, (torch.stack(ks), torch.stack(vs)),
                                    index)
         return self._head(self.norm(x)), cache
+
+    def loss(self, input_ids, labels, ignore_index: int = -100):
+        """Next-token cross entropy (labels equal to the inputs for LM
+        training on packed sequences, positions at ``ignore_index``
+        skipped) — see ``_common.causal_lm_loss``."""
+        return causal_lm_loss(self, input_ids, labels, ignore_index)
 
     def generate(self, input_ids, max_new_tokens: int, **kwargs):
         """Autoregressive decode — see ``paddle_tpu_torch.models.

@@ -1,7 +1,7 @@
 """Functional ops — the subset of ``paddle_tpu/nn/functional.py`` that the
-Llama serving path needs. Hot ops go through the port's kernels
-(``paddle_tpu_torch.kernels``), which launch on CUDA tensors and run
-their plain versions on CPU tensors.
+Llama serving and training paths need. Hot ops go through the port's
+kernels (``paddle_tpu_torch.kernels``), which launch on CUDA tensors and
+run their plain versions on CPU tensors; all of them are differentiable.
 """
 
 from __future__ import annotations
@@ -14,7 +14,11 @@ from paddle_tpu_torch import kernels
 
 __all__ = ["silu", "swiglu", "linear", "embedding", "rms_norm",
            "rotary_embedding", "apply_rotary",
-           "scaled_dot_product_attention"]
+           "scaled_dot_product_attention", "softmax_with_cross_entropy",
+           "cross_entropy", "check_head_mode", "linear_cross_entropy",
+           "next_token_linear_loss"]
+
+HEAD_MODES = ("auto", "fused", "chunked", "dense")
 
 
 def silu(x):
@@ -69,3 +73,77 @@ def scaled_dot_product_attention(q, k, v, *, causal: bool = False,
         scale = 1.0 / math.sqrt(q.shape[-1])
     return kernels.flash_attention.flash_attention(q, k, v, causal=causal,
                                                    scale=scale)
+
+
+# ---------------------------------------------------------------------------
+# Losses (``paddle_tpu/nn/functional.py:326-495``)
+# ---------------------------------------------------------------------------
+
+def softmax_with_cross_entropy(logits, label, ignore_index: int = -100,
+                               axis: int = -1):
+    """Per-position softmax cross entropy against int labels, 0 where the
+    label is ``ignore_index``. Plain torch: at Llama's vocabulary the JAX
+    package takes the same ``log_softmax`` + gather path (its Pallas
+    kernel dispatches only for V <= 2048)."""
+    logp = torch.log_softmax(logits, dim=axis)
+    valid = label != ignore_index
+    safe = torch.where(valid, label, 0).long()
+    nll = -torch.gather(logp, axis, safe.unsqueeze(axis)).squeeze(axis)
+    return torch.where(valid, nll, torch.zeros_like(nll))
+
+
+def _reduce_valid(loss, valid, reduction: str):
+    if reduction == "mean":
+        return loss.sum() / valid.sum().clamp(min=1).to(loss.dtype)
+    if reduction == "sum":
+        return loss.sum()
+    if reduction == "none":
+        return loss
+    raise ValueError(f"reduction {reduction!r}: one of 'mean', 'sum', "
+                     "'none'")
+
+
+def cross_entropy(logits, label, ignore_index: int = -100,
+                  reduction: str = "mean", axis: int = -1):
+    """Cross entropy with int labels; ``"mean"`` averages over the
+    positions whose label is not ``ignore_index``."""
+    loss = softmax_with_cross_entropy(logits, label, ignore_index, axis)
+    return _reduce_valid(loss, label != ignore_index, reduction)
+
+
+def check_head_mode(mode: str) -> None:
+    """Raise unless ``mode`` is a head mode that the port runs."""
+    if mode not in HEAD_MODES:
+        raise ValueError(f"linear_cross_entropy: unknown mode {mode!r} "
+                         f"(expected one of {HEAD_MODES})")
+    if mode != "dense":
+        raise NotImplementedError(
+            f"linear_cross_entropy mode {mode!r}: the fused and chunked "
+            "vocab-tiled heads (kernels B11-B15) come with the fused-head "
+            "slice of the port; only 'dense' runs so far")
+
+
+def linear_cross_entropy(hidden, weight, label, ignore_index: int = -100,
+                         reduction: str = "mean", mode: str = "dense"):
+    """LM-head projection + cross entropy: ``hidden`` [..., E] @ ``weight``
+    [E, V] in fp32, int ``label`` [...]. Only the dense mode (the whole
+    [..., V] logits) is ported."""
+    check_head_mode(mode)
+    e = hidden.shape[-1]
+    lab = label.reshape(-1)
+    logits = (hidden.reshape(-1, e) @ weight).float()
+    loss = softmax_with_cross_entropy(logits, lab, ignore_index)
+    loss = _reduce_valid(loss, lab != ignore_index, reduction)
+    return loss.reshape(label.shape) if reduction == "none" else loss
+
+
+def next_token_linear_loss(hidden, weight, labels, ignore_index: int = -100,
+                           mode: str = "dense"):
+    """Causal-LM head loss over ``hidden`` [B, T, E] with same-position
+    ``labels`` [B, T]: the labels shift left one step and the last
+    position is ignored."""
+    check_head_mode(mode)
+    shifted = torch.cat([labels[:, 1:], torch.full_like(labels[:, :1],
+                                                        ignore_index)], 1)
+    return linear_cross_entropy(hidden, weight, shifted,
+                                ignore_index=ignore_index, mode=mode)

@@ -30,7 +30,8 @@ def _forbidden(module: str) -> bool:
 
 def test_import_pulls_in_no_jax():
     code = ("import sys, paddle_tpu_torch, paddle_tpu_torch.models, "
-            "paddle_tpu_torch.bridge, paddle_tpu_torch.kernels\n"
+            "paddle_tpu_torch.bridge, paddle_tpu_torch.kernels, "
+            "paddle_tpu_torch.optimizer, paddle_tpu_torch.distributed\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r})\n"
             "print(','.join(bad))")
@@ -61,7 +62,8 @@ def test_source_names_no_jax(path):
 
 def test_every_kernel_has_a_source():
     for name in _support.KERNELS:
-        assert (_support.CSRC / f"{name}.cu").is_file(), name
+        assert (_support.CSRC / f"{_support.SOURCES[name]}.cu").is_file(), \
+            name
 
 
 def test_default_device_raises_without_cuda():

@@ -1,4 +1,4 @@
-"""The port's four kernel modules against the JAX package, in fp32 on the CPU.
+"""The port's kernel modules against the JAX package, in fp32 on the CPU.
 
 For each kernel the port's plain version (what its wrapper runs on a CPU
 tensor) is held against the Pallas kernel, run in interpret mode under
@@ -6,6 +6,11 @@ tensor) is held against the Pallas kernel, run in interpret mode under
 its gates accept (D=64, T=128, S=128), and against the JAX package's plain
 arm. Tolerance 2e-5 abs/rel: both sides compute in fp32, in another
 summation order. Inputs come from a numpy seed and go to both sides.
+
+The backward kernels' plain versions (flash dq/dk/dv, RMSNorm dx/dw, RoPE
+with ``sign=-1``) are held against ``jax.vjp`` of the Pallas functions,
+and the AdamW plain version against the Pallas ``adamw_update`` over
+several steps. Each ``autograd.Function`` passes ``gradcheck`` in float64.
 
 The CUDA kernels themselves run only on the card: ``test_kernel_on_card``
 holds each against its plain version there and skips without a GPU.
@@ -22,11 +27,13 @@ import torch
 from paddle_tpu.models import _common as jax_common
 from paddle_tpu.nn import functional as JF
 from paddle_tpu.ops.pallas import _support as jax_support
+from paddle_tpu.ops.pallas import adamw as jax_adamw
 from paddle_tpu.ops.pallas import decode_attention as jax_decode
 from paddle_tpu.ops.pallas import norm as jax_norm
 from paddle_tpu.ops.pallas import rope as jax_rope
 
 from paddle_tpu_torch.kernels import _support
+from paddle_tpu_torch.kernels import adamw as A
 from paddle_tpu_torch.kernels import decode_attention as DA
 from paddle_tpu_torch.kernels import flash_attention as FA
 from paddle_tpu_torch.kernels import norm as N
@@ -159,6 +166,177 @@ def test_flash_rejects_causal_with_more_queries_than_keys():
         FA.flash_attention(q, k, k, causal=True)
 
 
+# ----------------------------------------------------------------- backward
+
+def _vjp(fn, inputs, cotangent):
+    out, pull = jax.vjp(fn, *(jnp.asarray(a) for a in inputs))
+    return [np.asarray(g) for g in pull(jnp.asarray(cotangent))]
+
+
+@pytest.mark.parametrize("Hq,Hkv", [(4, 4), (4, 2)])
+def test_flash_bwd_matches_pallas_vjp(Hq, Hkv):
+    """dq, dk, dv of the plain backward (from the port's o and lse) and of
+    the autograd.Function against jax.vjp of the Pallas kernels."""
+    q, k, v = (_np(1, 128, Hq, 64, seed=3), _np(1, 128, Hkv, 64, seed=4),
+               _np(1, 128, Hkv, 64, seed=5))
+    do = _np(1, 128, Hq, 64, seed=6)
+    with jax_support.force_dispatch():
+        want = _vjp(lambda a, b, c: jax_flash.flash_attention(
+            a, b, c, causal=True), (q, k, v), do)
+    o, lse = FA.flash_attention(_t(q), _t(k), _t(v), causal=True,
+                                return_lse=True)
+    got = FA.flash_attention_bwd_reference(_t(q), _t(k), _t(v), o, lse,
+                                           _t(do), causal=True)
+    leaves = [_t(a).requires_grad_() for a in (q, k, v)]
+    auto = torch.autograd.grad(FA.flash_attention(*leaves, causal=True),
+                               leaves, _t(do))
+    for g, a, w in zip(got, auto, want):
+        np.testing.assert_allclose(g.numpy(), w, **TOL)
+        np.testing.assert_allclose(a.numpy(), w, **TOL)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("Tq,Tk", [(37, 37), (5, 20)])
+def test_flash_bwd_ragged_matches_plain_arm_vjp(causal, Tq, Tk):
+    """Ragged lengths and the Tk - Tq causal offset, gradients against
+    jax.vjp of the JAX einsum arm."""
+    q, k, v = (_np(2, Tq, 4, 64, seed=7), _np(2, Tk, 2, 64, seed=8),
+               _np(2, Tk, 2, 64, seed=9))
+    do = _np(2, Tq, 4, 64, seed=10)
+    want = _vjp(lambda a, b, c: JF.scaled_dot_product_attention(
+        a, b, c, causal=causal, use_pallas="never"), (q, k, v), do)
+    leaves = [_t(a).requires_grad_() for a in (q, k, v)]
+    got = torch.autograd.grad(TF.scaled_dot_product_attention(
+        *leaves, causal=causal), leaves, _t(do))
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), w, **TOL)
+
+
+def test_rms_norm_bwd_matches_pallas_vjp():
+    x, w, g = _np(256, 128, seed=11), _np(128, seed=12), _np(256, 128,
+                                                             seed=13)
+    with jax_support.force_dispatch():
+        want = _vjp(lambda a, b: jax_norm.rms_norm(a, b, 1e-5), (x, w), g)
+    _, rstd = N.rms_norm_reference(_t(x), _t(w), 1e-5, return_rstd=True)
+    dx, dw = N.rms_norm_bwd_reference(_t(x), _t(w), rstd, _t(g))
+    assert dw.dtype == torch.float32 and rstd.shape == (256,)
+    np.testing.assert_allclose(dx.numpy(), want[0], **TOL)
+    np.testing.assert_allclose(dw.numpy(), want[1], rtol=2e-5, atol=1e-4)
+    leaves = [_t(x).requires_grad_(), _t(w).requires_grad_()]
+    auto = torch.autograd.grad(N.rms_norm(*leaves, 1e-5), leaves, _t(g))
+    np.testing.assert_allclose(auto[0].numpy(), want[0], **TOL)
+    np.testing.assert_allclose(auto[1].numpy(), want[1], rtol=2e-5,
+                               atol=1e-4)
+
+
+def test_rope_backward_is_the_sign_flip_of_pallas():
+    x, g = _np(2, 128, 4, 64, seed=14), _np(2, 128, 4, 64, seed=15)
+    cos, sin = _tables(128, 64)
+    with jax_support.force_dispatch():
+        want = _vjp(lambda a: jax_rope.apply_rotary(
+            a, jnp.asarray(cos), jnp.asarray(sin)), (x,), g)[0]
+    leaf = _t(x).requires_grad_()
+    got = torch.autograd.grad(R.apply_rotary(leaf, _t(cos), _t(sin)), leaf,
+                              _t(g))[0]
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
+    np.testing.assert_allclose(
+        R.apply_rotary_reference(_t(g), _t(cos), _t(sin), -1.0).numpy(),
+        want, **TOL)
+
+
+@pytest.mark.parametrize("p_dtype", [np.float32, "bfloat16"])
+def test_adamw_reference_matches_pallas_over_steps(p_dtype):
+    """Four steps of the in-place plain version against the Pallas
+    ``adamw_update`` (interpret mode), fp32 moments, bf16 or fp32 p."""
+    rs = np.random.RandomState(16)
+    p0 = rs.randn(37, 29).astype(np.float32)
+    jp = jnp.asarray(p0, dtype=jnp.bfloat16 if p_dtype == "bfloat16"
+                     else jnp.float32)
+    jm = jv = jnp.zeros(p0.shape, jnp.float32)
+    tp = torch.from_numpy(np.array(jp.astype(jnp.float32))).to(
+        torch.bfloat16 if p_dtype == "bfloat16" else torch.float32)
+    tm, tv = torch.zeros(p0.shape), torch.zeros(p0.shape)
+    for step in range(1, 5):
+        g = rs.randn(*p0.shape).astype(np.float32) * 0.1
+        kw = dict(lr=1e-2 * step, beta1=0.9, beta2=0.99, eps=1e-8,
+                  weight_decay=0.1, step=step)
+        jp, jm, jv = jax_adamw.adamw_update(jp, jm, jv, jnp.asarray(g), **kw)
+        A.adamw_update(tp, tm, tv, torch.from_numpy(g), **kw)
+    np.testing.assert_allclose(tm.numpy(), np.asarray(jm), **TOL)
+    np.testing.assert_allclose(tv.numpy(), np.asarray(jv), **TOL)
+    np.testing.assert_allclose(tp.float().numpy(),
+                               np.asarray(jp.astype(jnp.float32)),
+                               **(TOL if p_dtype == np.float32
+                                  else dict(rtol=8e-3, atol=0)))
+
+
+ADAMW_STEP = dict(lr=3e-4, step=10)
+
+
+def _adamw_state(shape, p_dtype, gen, device):
+    """``((p0, m0, v0), g)``: p at Llama's init scale (0.02), g at 1e-3 in
+    p's type, and fp32 moments as ``step - 1`` earlier gradients of that
+    scale leave them, so that one step moves p by a few ulps even in
+    bf16."""
+    def rn():
+        return torch.randn(*shape, generator=gen, device=device)
+    s, gs = ADAMW_STEP["step"], 1e-3
+    p0 = (0.02 * rn()).to(p_dtype)
+    m0 = (1 - 0.9 ** (s - 1)) * gs * rn()
+    v0 = (1 - 0.999 ** (s - 1)) * (gs * rn()) ** 2
+    return (p0, m0, v0), (gs * rn()).to(p_dtype)
+
+
+@pytest.mark.parametrize("p_dtype", [torch.float32, torch.bfloat16])
+def test_adamw_mismatch_tells_wrong_steps_apart(p_dtype, monkeypatch):
+    """The tolerance the card holds the AdamW kernel to
+    (``update_mismatch``) passes the step computed in float64 and rounded,
+    and fails a step that writes nothing or drops the bias corrections."""
+    before, g = _adamw_state((64, 300), p_dtype,
+                             torch.Generator().manual_seed(5), "cpu")
+
+    def step(dtype=None):
+        state = [t.clone() if dtype is None else t.to(dtype) for t in before]
+        return A.adamw_update_reference(
+            *state, g if dtype is None else g.to(dtype), **ADAMW_STEP)
+
+    want = step()
+    p64, m64, v64 = step(torch.float64)
+    exact = (p64.to(p_dtype), m64.float(), v64.float())
+    assert A.update_mismatch(before, g, want, want, **ADAMW_STEP) == 0
+    assert A.update_mismatch(before, g, exact, want, **ADAMW_STEP) <= 1
+    assert A.update_mismatch(before, g, before, want, **ADAMW_STEP) > 1  # no-op
+    monkeypatch.setattr(A, "_bias_corrections", lambda b1, b2, s: (1.0, 1.0))
+    assert A.update_mismatch(before, g, step(), want, **ADAMW_STEP) > 1
+
+
+@pytest.mark.parametrize("case", ["flash_causal_gqa", "flash_full",
+                                  "rms_norm", "rope"])
+def test_autograd_function_gradcheck(case):
+    """Each autograd.Function's backward (the plain one on the CPU)
+    against finite differences, float64."""
+    g = torch.Generator().manual_seed(17)
+
+    def rn(*s):
+        return torch.randn(*s, generator=g, dtype=torch.float64,
+                           requires_grad=True)
+
+    if case.startswith("flash"):
+        q, k, v = rn(1, 5, 4, 8), rn(1, 7, 2, 8), rn(1, 7, 2, 8)
+        causal = case == "flash_causal_gqa"
+        ok = torch.autograd.gradcheck(lambda a, b, c: FA.flash_attention(
+            a, b, c, causal=causal), (q, k, v))
+    elif case == "rms_norm":
+        ok = torch.autograd.gradcheck(lambda a, b: N.rms_norm(a, b, 1e-5),
+                                      (rn(3, 4, 16), rn(16)))
+    else:
+        cos, sin = (torch.rand(5, 4, generator=g, dtype=torch.float64)
+                    for _ in range(2))
+        ok = torch.autograd.gradcheck(lambda a: R.apply_rotary(a, cos, sin),
+                                      (rn(2, 5, 3, 8),))
+    assert ok
+
+
 # --------------------------------------------------------- decode attention
 
 def _decode_inputs(Hq, Hkv, L=2, S=128, seed=0):
@@ -262,7 +440,8 @@ def test_build_is_content_addressed():
 def test_kernel_on_card(name):
     """Each CUDA kernel against its plain version on the card, bf16.
     Tolerance 2e-2 abs + rel: bf16 output rounding (2^-8 relative) plus
-    another fp32 summation order."""
+    another fp32 summation order; AdamW, elementwise fp32, is held tighter
+    (``update_mismatch``)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (runs on the H100; the CPU run "
                     "covers the plain versions)")
@@ -280,15 +459,44 @@ def test_kernel_on_card(name):
         sin = torch.rand(3, 64, generator=g, device="cuda")
         got = R.apply_rotary(x, cos, sin)
         want = R.apply_rotary_reference(x, cos, sin)
+    elif name == "rms_norm_bwd":
+        x, w, gr = rn(700, 4096), rn(4096), rn(700, 4096)
+        _, rstd = N.rms_norm_reference(x, w, 1e-5, return_rstd=True)
+        got = N.rms_norm_bwd(x, w, rstd, gr)
+        want = N.rms_norm_bwd_reference(x, w, rstd, gr)
     elif name == "flash_attention":
         q, k, v = rn(2, 77, 8, 128), rn(2, 77, 2, 128), rn(2, 77, 2, 128)
         got = FA.flash_attention(q, k, v, causal=True)
         want = FA.flash_attention_reference(q, k, v, causal=True)
+    elif name.startswith("flash_attention_bwd"):
+        q, k, v = rn(2, 77, 8, 128), rn(2, 77, 2, 128), rn(2, 77, 2, 128)
+        do = rn(2, 77, 8, 128)
+        o, lse = FA.flash_attention(q, k, v, causal=True, return_lse=True)
+        got = FA.flash_attention_bwd(q, k, v, o, lse, do)
+        want = FA.flash_attention_bwd_reference(q, k, v, o, lse, do)
+        pick = slice(0, 1) if name.endswith("_dq") else slice(1, 3)
+        got, want = got[pick], want[pick]
+    elif name == "adamw":
+        # each output at its own scale (update_mismatch), bf16 and fp32 p;
+        # a kernel that writes nothing must fail the same check
+        for p_dtype in (torch.bfloat16, torch.float32):
+            before, gr = _adamw_state((3, 1000), p_dtype, g, "cuda")
+            got = A.adamw_update(*(t.clone() for t in before), gr,
+                                 **ADAMW_STEP)
+            want = A.adamw_update_reference(*(t.clone() for t in before), gr,
+                                            **ADAMW_STEP)
+            assert A.update_mismatch(before, gr, got, want, **ADAMW_STEP) <= 1
+            assert A.update_mismatch(before, gr, before, want,
+                                     **ADAMW_STEP) > 1
+        return
     else:
         q, kn, vn = rn(2, 1, 8, 128), rn(2, 2, 1, 128), rn(2, 2, 1, 128)
         cache = (rn(3, 2, 2, 90, 128), rn(3, 2, 2, 90, 128))
         got = DA.decode_attention(q, kn, vn, cache, 2, 41)
         want = DA.decode_attention_reference(q, kn, vn, cache, 2, 41)
     torch.cuda.synchronize()
-    torch.testing.assert_close(got.float(), want.float(), rtol=2e-2,
-                               atol=2e-2)
+    if isinstance(got, torch.Tensor):
+        got, want = (got,), (want,)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a.float(), b.float(), rtol=2e-2,
+                                   atol=2e-2)

@@ -251,10 +251,14 @@ def test_bf16_model_builds_from_seed():
 
 
 def test_config_presets_match_jax():
-    for name in ("llama2_7b", "llama2_70b"):
+    """Every field the two configs share, for every preset."""
+    import dataclasses
+    shared = ({f.name for f in dataclasses.fields(JaxConfig)}
+              & {f.name for f in dataclasses.fields(LlamaConfig)})
+    assert {"remat", "remat_policy", "lm_head_mode", "max_seq_len",
+            "tie_embeddings", "init_std"} <= shared
+    for name in ("llama2_7b", "llama2_70b", "tiny"):
         j, t = getattr(JaxConfig, name)(), getattr(LlamaConfig, name)()
-        for f in ("vocab_size", "hidden_size", "intermediate_size",
-                  "num_layers", "num_heads", "num_kv_heads", "rms_eps",
-                  "rope_base", "dtype"):
+        for f in sorted(shared):
             assert getattr(t, f) == getattr(j, f), (name, f)
         assert t.num_params() == j.num_params()
