@@ -38,6 +38,25 @@ Four phases; any failure exits non-zero and prints no result line.
    the first step's gradients and every parameter after the last step
    must agree within limits that a control run (the plain run with
    attention scores and probabilities rounded to bf16) must fail.
+5. ``bench.py``'s training configuration at full width and depth: the
+   ~0.95 B Llama (V=32000, E=2048, F=5632, 16 layers, 16 heads), bf16,
+   fused LM head, ``save_mlp_dots_attn`` recompute, B=4 × T=2048 of ids
+   from ``np.random.RandomState(0)`` with labels equal to the ids; AdamW
+   as in phase 4; one warm-up and 3 timed steps, exact launch counts,
+   peak memory, bench.py's FLOPs share, a profiled step; the same steps
+   under ``force_reference()`` within limits that phase 4's
+   bf16-attention control must fail, and a second control (the head's
+   logits rounded to bf16, the JAX dense head's numerics) recorded.
+
+Phase 2 also holds the fused head's three kernels (B11-B13) against their
+plain versions at the bench shape (N=8192, E=2048, V=32000), the 7B head
+(E=4096) and a ragged case, and against the same bf16-logits control at
+the bench shape: the forward's per-row losses and dH must tell the
+kernels from the control there, since in phase 5 attention's own bf16
+differences hide it (see ``PERF.md``). Planted faults (the label logit,
+the one-hot term or the softmax term taken out) must fail the same
+checks, and the backward as training runs it (dH and dW in one walk) is
+timed and must equal the two run alone.
 
 The last two lines of standard output are a JSON line of per-kernel
 numbers and ``{"ok": true, "device": {...}}``. A fuller report goes to
@@ -56,6 +75,7 @@ import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 
 SEED = 1234
@@ -114,11 +134,48 @@ REPLACES = {
         "paddle_tpu/ops/pallas/flash_attention.py:261",
     "decode_attention": "paddle_tpu/ops/pallas/decode_attention.py:211",
     "adamw": "paddle_tpu/ops/pallas/adamw.py:39",
+    "linear_xent_fwd": "paddle_tpu/ops/pallas/linear_xent.py:187",
+    "linear_xent_dh": "paddle_tpu/ops/pallas/linear_xent.py:221",
+    "linear_xent_dw": "paddle_tpu/ops/pallas/linear_xent.py:247",
 }
-# the kernels each path runs; decode attention is the serving path's own
+# the kernels each path runs; decode attention is the serving path's own,
+# the fused head the bench path's
 TRAIN_KERNELS = ("rms_norm", "rms_norm_bwd", "rope", "flash_attention",
                  "flash_attention_bwd_dq", "flash_attention_bwd_dkdv",
                  "adamw")
+HEAD_KERNELS = ("linear_xent_fwd", "linear_xent_dh", "linear_xent_dw")
+# Fused head against its plain versions. Both take the same fp32 logits
+# up to summation order, so the forward's fp32 lse and label logit agree
+# to ~1e-5: held at 1e-3 + 1e-4·|ref|. dH and dW round dlogits and the
+# result to bf16 at the same points, so an element differs by at most
+# about one bf16 ulp: held at 2^-7·|ref| + 1e-3·max|ref|. Over a whole
+# tensor, relative L2 error is held at HEAD_REL_L2. On the H100 (NVIDIA
+# H100 80GB HBM3, 700 W) the kernels read at most 4.5e-6 (forward),
+# 1.65e-4 (dH) and 2.22e-4 (dW) over the three shapes; the bf16-logits
+# control at the bench shape 1.65e-3, 3.42e-4 and 2.35e-4 (and the
+# forward's element check 6.5 against the kernel's 0.007). The forward's
+# and dH's limits sit between, and the control must fail them: that check
+# tells the kernels from bf16 head logits, which the whole step of phase 5
+# cannot (below). dW's rounding differences are as large as the
+# control's, so its limit is a bound on the kernel only.
+HEAD_FWD_TOL = (1e-3, 1e-4, False)       # atol, rtol, atol scaled by max
+HEAD_BWD_TOL = (1e-3, 2.0 ** -7, True)
+HEAD_REL_L2 = {"linear_xent_fwd": 1e-4, "linear_xent_dh": 2.5e-4,
+               "linear_xent_dw": 3e-4}
+HEAD_CONTROL_FAILS = ("linear_xent_fwd", "linear_xent_dh")
+# Phase 5: bench.py's configuration (bench.py:116-121), full depth. On the
+# H100 (NVIDIA H100 80GB HBM3, 700 W) the kernel run against the plain run
+# read |Δloss| 4.39e-5, gradients 0.0307 relative L2 and 0.99922 least
+# cosine, 1.27% of parameters different after the last step, the same in
+# every run; phase 4's bf16-attention control read 1.56e-4, 0.0385,
+# 0.99874 and 1.41%. Each limit sits between the two, and that control
+# must fail every one. The bf16-head-logits control (8.30e-5, 0.0129,
+# 0.99987, 1.04%) passes them, as attention's own differences hide it:
+# phase 2 holds the head against it.
+BENCH_LAYERS, BENCH_B, BENCH_T = 16, 4, 2048
+BENCH_LIMITS = {"loss_abs": ("<=", 1e-4), "grad_rel_l2": ("<=", 0.0345),
+                "grad_min_cosine": (">=", 0.999),
+                "param_diff_share": ("<=", 0.0134)}
 
 
 def log(*a):
@@ -221,6 +278,7 @@ def main() -> int:
     from paddle_tpu_torch.kernels import adamw as A
     from paddle_tpu_torch.kernels import decode_attention as DA
     from paddle_tpu_torch.kernels import flash_attention as FA
+    from paddle_tpu_torch.kernels import linear_xent as LX
     from paddle_tpu_torch.kernels import norm as N
     from paddle_tpu_torch.kernels import rope as R
     from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
@@ -501,6 +559,137 @@ def main() -> int:
             del before, gp, want, no_bias, mismatch
         del p_n, g, m0, v0
         torch.cuda.empty_cache()
+
+    # the fused head (B11-B13): the bench shape (timed, and against the
+    # bf16-logits control), the 7B head and a ragged case (N, E and V off
+    # every tile, V odd so W is read element by element, label V - 1 in
+    # the partial vocab tile). Hidden at RMSNorm scale, W at init scale
+    # (0.02), every 97th row at -100, g the mean's cotangent.
+    def head_mismatch(atol, rtol, scaled):
+        return lambda got, want: LX.mismatch(got, want, atol, rtol, scaled)
+
+    def rel_l2(got, want):
+        return max(((a.float() - b.float()).norm() / b.float().norm()).item()
+                   for a, b in zip(got, want))
+
+    rounded_logits = (lambda h, w, ct: (h.to(ct) @ w.to(ct))
+                      .to(torch.bfloat16).to(ct))
+    for geo, n, E, V in (("bench", BENCH_B * BENCH_T, 2048, 32000),
+                         ("7B", BENCH_B * BENCH_T, 4096, 32000),
+                         ("ragged", 1000, 2056, 32003)):
+        timed = geo == "bench"
+        h, w = rn(n, E), (rn(E, V).float() * 0.02).to(bf16)
+        lab = torch.randint(0, V, (n,), generator=gen, device=dev)
+        lab[::97] = -100
+        lab[1::389] = V - 1
+        valid = lab != -100
+        g = valid.float() / valid.sum()
+        lse, _ = LX.linear_xent_fwd_reference(h, w, lab)
+        lib_fwd = lib_bwd = None
+        if timed:
+            hl, wl = h.detach().requires_grad_(), w.detach().requires_grad_()
+            per = torch.nn.functional.cross_entropy(
+                (hl @ wl).float(), lab, reduction="none")
+            lib_fwd = lambda: h @ w                       # noqa: E731
+            lib_bwd = (lambda: torch.autograd.grad(       # noqa: E731
+                per, (hl, wl), g, retain_graph=True))
+        in_bytes = (n * E + E * V) * 2 + n * 8
+        shape = f"h[{n},{E}] W[{E},{V}]"
+        cases = (("linear_xent_fwd", LX.linear_xent_fwd,
+                  LX.linear_xent_fwd_reference, (), HEAD_FWD_TOL,
+                  in_bytes + 2 * n * 4, 2 * n * E * V, lib_fwd),
+                 ("linear_xent_dh", LX.linear_xent_dh,
+                  LX.linear_xent_dh_reference, (lse, g), HEAD_BWD_TOL,
+                  in_bytes + 2 * n * 4 + n * E * 2, 4 * n * E * V, lib_bwd),
+                 ("linear_xent_dw", LX.linear_xent_dw,
+                  LX.linear_xent_dw_reference, (lse, g), HEAD_BWD_TOL,
+                  in_bytes + 2 * n * 4 + E * V * 2, 4 * n * E * V, lib_bwd))
+        for name, kern, plain, extra, tol, nbytes, ops, lib in cases:
+            case(name, geo, shape,
+                 lambda kern=kern, extra=extra: kern(h, w, lab, *extra),
+                 lambda plain=plain, extra=extra: plain(h, w, lab, *extra),
+                 nbytes, ops, lib, timed=timed, timer=time_ms_eager,
+                 mismatch=head_mismatch(*tol),
+                 tol=f"{tol[0]}{'·max|ref|' if tol[2] else ''}"
+                     f"+{tol[1]:.3g}*|ref|")
+            got = kern(h, w, lab, *extra)
+            want = plain(h, w, lab, *extra)
+            if isinstance(got, torch.Tensor):
+                got, want = (got,), (want,)
+            rows[-1]["rel_l2"] = rel_l2(got, want)
+            if rows[-1]["rel_l2"] > HEAD_REL_L2[name]:
+                failures.append(f"{name} {geo}: relative L2 error "
+                                f"{rows[-1]['rel_l2']} > {HEAD_REL_L2[name]}")
+            if timed:
+                # the bf16-logits control: the plain version with the
+                # logits rounded before the softmax must fail the checks
+                saved_logits = LX._tile_logits
+                LX._tile_logits = rounded_logits
+                try:
+                    ctrl = plain(h, w, lab, *extra)
+                finally:
+                    LX._tile_logits = saved_logits
+                if isinstance(ctrl, torch.Tensor):
+                    ctrl = (ctrl,)
+                control = {"mismatch": head_mismatch(*tol)(ctrl, want),
+                           "rel_l2": rel_l2(ctrl, want)}
+                rows[-1]["control"] = control
+                log(f"    {name} rel_l2 {rows[-1]['rel_l2']:.3g}; control "
+                    f"(bf16 logits) {control}")
+                if name in HEAD_CONTROL_FAILS and control["mismatch"] <= 1.0 \
+                        and control["rel_l2"] <= HEAD_REL_L2[name]:
+                    failures.append(f"{name}: the bf16-logits control "
+                                    f"passes the check ({control})")
+                del ctrl
+                # planted faults the check must catch: the forward without
+                # its label logit, dH and dW without the one-hot term and
+                # without the softmax term (lse at +inf)
+                no_labels = torch.full_like(lab, -100)
+                faults = {"label dropped" if not extra else "one-hot dropped":
+                          plain(h, w, no_labels, *extra)}
+                if extra:
+                    faults["softmax dropped"] = plain(
+                        h, w, lab, torch.full_like(lse, float("inf")), g)
+                readings = {}
+                for fault, bad in faults.items():
+                    if isinstance(bad, torch.Tensor):
+                        bad = (bad,)
+                    readings[fault] = {"mismatch": head_mismatch(*tol)(
+                        bad, want), "rel_l2": rel_l2(bad, want)}
+                    if readings[fault]["mismatch"] <= 1.0 and \
+                            readings[fault]["rel_l2"] <= HEAD_REL_L2[name]:
+                        failures.append(f"{name}: the planted fault "
+                                        f"'{fault}' passes the check "
+                                        f"({readings[fault]})")
+                rows[-1]["faults"] = readings
+                log(f"    {name} planted faults (must fail): {readings}")
+                del faults, bad
+            del got, want
+        if timed:
+            # the backward as training runs it: dH and dW in one walk over
+            # the vocabulary, each chunk's dlogits computed once
+            both = LX._bwd_kernel(h, w, lab, lse, g, True, True)
+            alone = (LX.linear_xent_dh(h, w, lab, lse, g),
+                     LX.linear_xent_dw(h, w, lab, lse, g))
+            same = all(torch.equal(a, b) for a, b in zip(both, alone))
+            if not same:
+                failures.append("linear_xent: the shared backward's dH and "
+                                "dW differ from dH and dW run alone")
+            b_ms, b_by = bound(in_bytes + 2 * n * 4 + n * E * 2 + E * V * 2,
+                               6 * n * E * V)
+            report["head_bwd_shared"] = {
+                "ms": time_ms_eager(lambda: LX._bwd_kernel(
+                    h, w, lab, lse, g, True, True)),
+                "bound_ms": b_ms, "bound_by": b_by,
+                "library_ms": time_ms_eager(lib_bwd),
+                "equal_to_alone": same, "shape": shape}
+            log(f"  linear_xent dH+dW shared walk {shape}: "
+                f"{report['head_bwd_shared']}")
+            del both, alone
+        del h, w, lab, valid, g, lse, lib_fwd, lib_bwd, cases
+        if timed:
+            del hl, wl, per
+        torch.cuda.empty_cache()
     report["kernel_cases"] = rows
     torch.cuda.empty_cache()
 
@@ -680,15 +869,15 @@ def main() -> int:
                         generator=gen, device=dev)
     batch = {"input_ids": ids, "labels": ids}
 
-    def train(kernels: bool):
-        """A warm-up step and TRAIN_STEPS timed steps from the seeded
-        weights; the kernels, or (``kernels=False``) the plain versions.
-        The kernel run then profiles one more step, after everything it
-        reports was read."""
+    def train(cfg, batch, kernels: bool):
+        """A warm-up step and TRAIN_STEPS timed steps of model ``cfg`` on
+        ``batch`` from the seeded weights; the kernels, or
+        (``kernels=False``) the plain versions. The kernel run then
+        profiles one more step, after everything it reports was read."""
         ctx = (contextlib.nullcontext() if kernels
                else _support.force_reference())
         with ctx:
-            model = LlamaForCausalLM(tcfg, device=dev,
+            model = LlamaForCausalLM(cfg, device=dev,
                                      generator=make_generator(SEED, dev))
             step = fleet.build_train_step(model, optim.AdamW(
                 warmup_cosine(3e-4, 100, 10000),
@@ -769,7 +958,7 @@ def main() -> int:
                      "flash_attention_bwd_dkdv": TL, "adamw": 9 * TL + 3})
     expected_train = {k: TRAIN_STEPS * v for k, v in per_step.items()}
     t = time.perf_counter()
-    kern = train(True)
+    kern = train(tcfg, batch, True)
     train_launches = kern["launches"]
     log(f"training path launches {train_launches} expected "
         f"{expected_train}")
@@ -782,14 +971,14 @@ def main() -> int:
         failures.append(f"training losses {kern['loss']} not near ln V = "
                         f"{ln_v:.3f} (random weights) or grad norms "
                         f"{kern['grad_norm']} not finite")
-    ref_run = train(False)
+    ref_run = train(tcfg, batch, False)
     res_t = compare_runs(kern, ref_run)
     del kern["grads"], kern["params"]
     saved = FA.flash_attention_reference, FA.flash_attention_bwd_reference
     FA.flash_attention_reference = einsum_arm_attention
     FA.flash_attention_bwd_reference = control_attention_bwd
     try:
-        ctrl = train(False)
+        ctrl = train(tcfg, batch, False)
     finally:
         FA.flash_attention_reference, FA.flash_attention_bwd_reference = \
             saved
@@ -837,6 +1026,117 @@ def main() -> int:
         failures.append("training check cannot tell the kernels from bf16 "
                         f"attention: the control passes "
                         f"{passed(ctrl_t, TRAIN_LIMITS)} ({ctrl_t})")
+    del kern, ref_run, ctrl
+    torch.cuda.empty_cache()
+
+    # ----------------------------------- 5. bench.py's training config
+    bcfg = LlamaConfig(
+        vocab_size=32000, hidden_size=2048, intermediate_size=5632,
+        num_layers=BENCH_LAYERS, num_heads=16, num_kv_heads=16,
+        max_seq_len=BENCH_T, dtype="bfloat16", remat=True,
+        remat_policy="save_mlp_dots_attn", lm_head_mode="fused")
+    BL = bcfg.num_layers
+    ids = torch.from_numpy(np.random.RandomState(0).randint(
+        0, bcfg.vocab_size, (BENCH_B, BENCH_T))).to(dev)
+    bench_batch = {"input_ids": ids, "labels": ids}
+    # the flash forward runs twice a layer under save_mlp_dots_attn too:
+    # the saved wo output does not spare wo's input (nn/scan.py)
+    per_step = dict.fromkeys(_support.KERNELS, 0)
+    per_step.update({"rms_norm": 4 * BL + 1, "rms_norm_bwd": 2 * BL + 1,
+                     "rope": 6 * BL, "flash_attention": 2 * BL,
+                     "flash_attention_bwd_dq": BL,
+                     "flash_attention_bwd_dkdv": BL, "adamw": 9 * BL + 3,
+                     "linear_xent_fwd": 1, "linear_xent_dh": 1,
+                     "linear_xent_dw": 1})
+    expected_bench = {k: TRAIN_STEPS * v for k, v in per_step.items()}
+    t = time.perf_counter()
+    kern = train(bcfg, bench_batch, True)
+    bench_launches = kern["launches"]
+    log(f"bench path launches {bench_launches} expected {expected_bench}")
+    if bench_launches != expected_bench:
+        failures.append(f"bench launch counts {bench_launches} != "
+                        f"{expected_bench}")
+    ln_v = math.log(bcfg.vocab_size)
+    if not (all(ln_v - 1 < x < ln_v + 3 for x in kern["loss"])
+            and all(math.isfinite(x) for x in kern["grad_norm"])):
+        failures.append(f"bench losses {kern['loss']} not near ln V or grad "
+                        f"norms {kern['grad_norm']} not finite")
+    ref_run = train(bcfg, bench_batch, False)
+    res_b = compare_runs(kern, ref_run)
+    del kern["grads"], kern["params"]
+    # two controls: bf16 attention (phase 4's), which the limits must
+    # tell apart, and bf16 head logits, which attention's own differences
+    # hide (recorded; phase 2 holds the head against it)
+    saved = FA.flash_attention_reference, FA.flash_attention_bwd_reference
+    FA.flash_attention_reference = einsum_arm_attention
+    FA.flash_attention_bwd_reference = control_attention_bwd
+    try:
+        actrl = train(bcfg, bench_batch, False)
+    finally:
+        FA.flash_attention_reference, FA.flash_attention_bwd_reference = \
+            saved
+    actrl_b = compare_runs(actrl, ref_run)
+    del actrl["grads"], actrl["params"]
+    saved_logits = LX._tile_logits
+    LX._tile_logits = rounded_logits
+    try:
+        ctrl = train(bcfg, bench_batch, False)
+    finally:
+        LX._tile_logits = saved_logits
+    ctrl_b = compare_runs(ctrl, ref_run)
+    del ctrl["grads"], ctrl["params"], ref_run["grads"], ref_run["params"]
+    torch.cuda.empty_cache()
+    for run, counts in (("plain", ref_run["launches"]),
+                        ("attention control", actrl["launches"]),
+                        ("head control", ctrl["launches"])):
+        if any(counts.values()):
+            failures.append(f"{run} bench run launched kernels {counts}")
+    step_ms = statistics.median(kern["step_ms"])
+    tokens_per_s = BENCH_B * BENCH_T / step_ms * 1e3
+    n_params = bcfg.num_params()
+    # bench.py:212-214: 6 N weight FLOPs + 12 L E T attention per token
+    flops_share = tokens_per_s * (6 * n_params + 12 * BL * bcfg.hidden_size
+                                  * BENCH_T) / BF16_OPS_PER_S
+    report["bench"] = {
+        "model": f"bench.py's Llama (~{n_params / 1e9:.2f} B parameters, "
+                 f"{BL} layers, random weights, seed {SEED})",
+        "config": dataclasses.asdict(bcfg), "batch": BENCH_B,
+        "seq": BENCH_T, "timed_steps": TRAIN_STEPS,
+        "step_ms": kern["step_ms"], "step_ms_median": step_ms,
+        "host_ms": kern["host_ms"], "tokens_per_s": tokens_per_s,
+        "flops_share": flops_share, "n_params": n_params,
+        "peak_mem_gb": kern["peak_gb"], "launches": bench_launches,
+        "expected_launches": expected_bench,
+        "step_profile": kern["profile"],
+        "runs": {name: {k: r[k] for k in ("loss", "grad_norm", "step_ms",
+                                          "peak_gb")}
+                 for name, r in (("kernels", kern), ("plain", ref_run),
+                                 ("attention control", actrl),
+                                 ("head control", ctrl))},
+        "kernels_vs_plain": res_b, "attention_control_vs_plain": actrl_b,
+        "head_control_vs_plain": ctrl_b,
+        "limits": BENCH_LIMITS, "sanity_limits": TRAIN_SANITY,
+        "phase_s": time.perf_counter() - t, "card": card}
+    log(f"bench config on {card}: step {step_ms:.1f} ms (median of "
+        f"{kern['step_ms']}), {tokens_per_s:.0f} tokens/s, peak "
+        f"{kern['peak_gb']:.2f} GB; losses {kern['loss']} grad_norms "
+        f"{kern['grad_norm']}")
+    log(f"bench FLOPs share (bench.py's count over 989 TFLOP/s) on {card}: "
+        f"{flops_share:.4f}")
+    log(f"bench step profile: wall {kern['profile']['wall_us']:.0f} us, "
+        f"device {kern['profile']['device_us']:.0f} us, top "
+        f"{kern['profile']['top']}")
+    log(f"bench kernels vs plain: {res_b}; control (bf16 attention) vs "
+        f"plain: {actrl_b}; control (bf16 head logits) vs plain: {ctrl_b}; "
+        f"limits {BENCH_LIMITS}, sanity {TRAIN_SANITY}")
+    limits = {**BENCH_LIMITS, **TRAIN_SANITY}
+    if len(passed(res_b, limits)) != len(limits):
+        failures.append(f"bench run disagrees with the plain run: {res_b}, "
+                        f"limits {limits}")
+    if passed(actrl_b, BENCH_LIMITS):
+        failures.append("bench check cannot tell the kernels from bf16 "
+                        f"attention: the control passes "
+                        f"{passed(actrl_b, BENCH_LIMITS)} ({actrl_b})")
 
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke_report.json"),
@@ -854,10 +1154,12 @@ def main() -> int:
             "name": name, "route": "cuda",
             "source": f"paddle_tpu_torch/csrc/{_support.SOURCES[name]}.cu",
             "replaces": REPLACES[name],
-            "launches": (train_launches if name in TRAIN_KERNELS
+            "launches": (bench_launches if name in HEAD_KERNELS
+                         else train_launches if name in TRAIN_KERNELS
                          else launches)[name],
             "launches_by_path": {"serving": launches[name],
-                                 "training": train_launches[name]},
+                                 "training": train_launches[name],
+                                 "bench": bench_launches[name]},
             "max_abs_err": max(r["max_abs_err"] for r in rows
                                if r["kernel"] == name),
             "ms": row["ms"], "plain_ms": row["plain_ms"],

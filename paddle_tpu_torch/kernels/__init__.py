@@ -1,14 +1,16 @@
 """The port's hand-written Hopper kernels, one module each, with the plain
 PyTorch version of each beside it: ``norm`` (RMSNorm forward and
 backward), ``rope.apply_rotary``, ``flash_attention`` (forward and the dq
-and dk/dv backward), ``decode_attention.decode_attention`` and
-``adamw.adamw_update``. The differentiable ones are
+and dk/dv backward), ``decode_attention.decode_attention``,
+``adamw.adamw_update`` and ``linear_xent`` (the fused LM head ⊗
+cross-entropy forward, dH and dW). The differentiable ones are
 ``torch.autograd.Function``s whose backward is a kernel too. See
 ``_support`` for the build, the dispatch rule, the launch counters and
 ``force_reference()``."""
 
 from paddle_tpu_torch.kernels import (_support, adamw, decode_attention,
-                                      flash_attention, norm, rope)
+                                      flash_attention, linear_xent, norm,
+                                      rope)
 
 __all__ = ["_support", "adamw", "decode_attention", "flash_attention",
-           "norm", "rope"]
+           "linear_xent", "norm", "rope"]

@@ -55,6 +55,9 @@ SOURCES = {
     "flash_attention_bwd_dkdv": "flash_attention_bwd",
     "decode_attention": "decode_attention",
     "adamw": "adamw",
+    "linear_xent_fwd": "linear_xent",
+    "linear_xent_dh": "linear_xent",
+    "linear_xent_dw": "linear_xent",
 }
 KERNELS = tuple(SOURCES)
 LAUNCHES = {name: 0 for name in KERNELS}

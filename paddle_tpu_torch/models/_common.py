@@ -1,6 +1,6 @@
-"""Pieces shared by the decoder-only families: the causal-LM loss
-(``paddle_tpu/models/_common.py:10-28``) and the static KV cache in the
-float layout (``:40-182``)."""
+"""Pieces shared by the decoder-only families: the causal-LM loss with
+its head modes (``paddle_tpu/models/_common.py:10-28``) and the static KV
+cache in the float layout (``:40-182``)."""
 
 from __future__ import annotations
 
@@ -15,13 +15,21 @@ __all__ = ["causal_lm_loss", "cached_attention", "apply_cache_writes",
            "init_kv_cache"]
 
 
-def causal_lm_loss(model, input_ids, labels, ignore_index: int = -100):
-    """Next-token loss of a decoder-only model: the logits ``[:, :-1]`` go
-    to fp32 and meet ``labels[:, 1:]`` in ``cross_entropy``. That is the
-    dense head (``cfg.lm_head_mode == "dense"``); the JAX package's other
-    modes fuse the head projection into the loss and take its weight,
-    and raise here until the fused-head slice is ported."""
-    F.check_head_mode(model.config.lm_head_mode)
+def causal_lm_loss(model, head_weight, input_ids, labels,
+                   ignore_index: int = -100):
+    """Next-token loss of a decoder-only model. ``cfg.lm_head_mode !=
+    "dense"`` fuses the head projection into the loss: the trunk's hidden
+    states and the [E, V] ``head_weight`` (tied models pass
+    ``embed.weight.T``) go to ``F.next_token_linear_loss`` over all T
+    rows, so the [B, T, V] logits never exist. ``"dense"`` takes the
+    model's logits ``[:, :-1]`` to fp32 against ``labels[:, 1:]`` in
+    ``cross_entropy``."""
+    mode = model.config.lm_head_mode
+    F.check_head_mode(mode)
+    if mode != "dense":
+        return F.next_token_linear_loss(model.hidden_states(input_ids),
+                                        head_weight, labels,
+                                        ignore_index=ignore_index, mode=mode)
     logits = model(input_ids)
     return F.cross_entropy(logits[:, :-1].float(), labels[:, 1:],
                            ignore_index=ignore_index)

@@ -3,8 +3,11 @@
 
 Layers are an ``nn.ModuleList`` of blocks (the JAX package scans one
 stacked block; ``bridge.py`` unstacks its weights). With ``cfg.remat``
-and gradients enabled, each block recomputes its forward in backward
-(``nn/scan.py``). Weights are ``[in, out]`` as in the JAX package (see
+and gradients enabled, each block recomputes its forward in backward,
+keeping what ``cfg.remat_policy`` saves (``nn/scan.py``); the blocks tag
+the projections the named policies save, as the JAX blocks do
+(``qkv``, ``attn_out``, ``mlp_up``, ``mlp_gate``, ``mlp_out``). Weights
+are ``[in, out]`` as in the JAX package (see
 ``nn/common.py``). The model is built directly on its device in its
 dtype from the caller's generator.
 """
@@ -24,7 +27,7 @@ from paddle_tpu_torch.models._common import (apply_cache_writes,
 from paddle_tpu_torch.nn import functional as F
 from paddle_tpu_torch.nn.common import Embedding, Linear
 from paddle_tpu_torch.nn.norm import RMSNorm
-from paddle_tpu_torch.nn.scan import run_blocks
+from paddle_tpu_torch.nn.scan import run_blocks, tag
 
 __all__ = ["LlamaConfig", "LlamaAttention", "LlamaMLP", "LlamaBlock",
            "LlamaForCausalLM"]
@@ -45,8 +48,9 @@ class LlamaConfig:
     dtype: str = "bfloat16"
     remat: bool = True
     remat_policy: str = "nothing_saveable"
-    # LM-head loss path: only "dense" (matmul + cross entropy) is ported;
-    # "fused", "chunked" and "auto" raise (see nn.functional)
+    # LM-head loss path (nn.functional.linear_cross_entropy): "dense"
+    # (logits + cross entropy), "fused" (the vocab-tiled kernels, logits
+    # never stored), "chunked" (plain vocab chunks) or "auto"
     lm_head_mode: str = "dense"
     init_std: float = 0.02
 
@@ -103,9 +107,10 @@ class LlamaAttention(nn.Module):
         computed once per model forward. With ``cache`` returns
         ``(out, payload)`` — see ``_common.cached_attention``."""
         B, T, E = x.shape
-        q = self.wq(x).reshape(B, T, self.num_heads, self.head_dim)
-        k = self.wk(x).reshape(B, T, self.num_kv_heads, self.head_dim)
-        v = self.wv(x).reshape(B, T, self.num_kv_heads, self.head_dim)
+        with tag("qkv"):
+            q = self.wq(x).reshape(B, T, self.num_heads, self.head_dim)
+            k = self.wk(x).reshape(B, T, self.num_kv_heads, self.head_dim)
+            v = self.wv(x).reshape(B, T, self.num_kv_heads, self.head_dim)
         cos, sin = rope
         q = F.apply_rotary(q, cos, sin)
         k = F.apply_rotary(k, cos, sin)
@@ -114,7 +119,8 @@ class LlamaAttention(nn.Module):
                                             layer=layer)
             return self.wo(out.reshape(B, T, E)), payload
         out = F.scaled_dot_product_attention(q, k, v, causal=True)
-        return self.wo(out.reshape(B, T, E))
+        with tag("attn_out"):
+            return self.wo(out.reshape(B, T, E))
 
 
 class LlamaMLP(nn.Module):
@@ -128,7 +134,13 @@ class LlamaMLP(nn.Module):
             2 * cfg.num_layers), **kw)
 
     def forward(self, x):
-        return self.down(F.swiglu(self.up(x), self.gate(x)))
+        with tag("mlp_up"):
+            up = self.up(x)
+        with tag("mlp_gate"):
+            gate = self.gate(x)
+        act = F.swiglu(up, gate)
+        with tag("mlp_out"):
+            return self.down(act)
 
 
 class LlamaBlock(nn.Module):
@@ -243,8 +255,12 @@ class LlamaForCausalLM(nn.Module):
     def loss(self, input_ids, labels, ignore_index: int = -100):
         """Next-token cross entropy (labels equal to the inputs for LM
         training on packed sequences, positions at ``ignore_index``
-        skipped) — see ``_common.causal_lm_loss``."""
-        return causal_lm_loss(self, input_ids, labels, ignore_index)
+        skipped) through ``cfg.lm_head_mode`` — see
+        ``_common.causal_lm_loss``. A tied model's head weight is the
+        embedding table transposed."""
+        weight = (self.lm_head.weight if self.lm_head is not None
+                  else self.embed.weight.T)
+        return causal_lm_loss(self, weight, input_ids, labels, ignore_index)
 
     def generate(self, input_ids, max_new_tokens: int, **kwargs):
         """Autoregressive decode — see ``paddle_tpu_torch.models.

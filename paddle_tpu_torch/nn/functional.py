@@ -9,6 +9,7 @@ from __future__ import annotations
 import math
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from paddle_tpu_torch import kernels
 
@@ -16,7 +17,7 @@ __all__ = ["silu", "swiglu", "linear", "embedding", "rms_norm",
            "rotary_embedding", "apply_rotary",
            "scaled_dot_product_attention", "softmax_with_cross_entropy",
            "cross_entropy", "check_head_mode", "linear_cross_entropy",
-           "next_token_linear_loss"]
+           "chunked_linear_cross_entropy", "next_token_linear_loss"]
 
 HEAD_MODES = ("auto", "fused", "chunked", "dense")
 
@@ -112,36 +113,80 @@ def cross_entropy(logits, label, ignore_index: int = -100,
 
 
 def check_head_mode(mode: str) -> None:
-    """Raise unless ``mode`` is a head mode that the port runs."""
+    """Raise unless ``mode`` is one of ``HEAD_MODES``."""
     if mode not in HEAD_MODES:
         raise ValueError(f"linear_cross_entropy: unknown mode {mode!r} "
                          f"(expected one of {HEAD_MODES})")
-    if mode != "dense":
-        raise NotImplementedError(
-            f"linear_cross_entropy mode {mode!r}: the fused and chunked "
-            "vocab-tiled heads (kernels B11-B15) come with the fused-head "
-            "slice of the port; only 'dense' runs so far")
+
+
+def _chunk_merge(m, l, s, hidden, w_c, off, lab):
+    """One vocab chunk's fp32 logits folded into the running (max, sum,
+    label logit)."""
+    return kernels.linear_xent.online_merge(
+        m, l, s, hidden.float() @ w_c.float(), off, lab[:, None])
+
+
+def chunked_linear_cross_entropy(hidden, weight, labels,
+                                 block_v: int = 4096):
+    """Per-row ``lse − label logit`` of ``hidden`` [N, E] @ ``weight``
+    [E, V] over vocab chunks of ``block_v`` (the last one ragged) with a
+    running max and sum, each chunk under ``torch.utils.checkpoint`` so
+    that backward recomputes its logits instead of keeping them — the port
+    of ``paddle_tpu/ops/pallas/linear_xent.py:343-384``, plain PyTorch as
+    the JAX package's is plain XLA. Out-of-range labels select nothing."""
+    n, v = hidden.shape[0], weight.shape[1]
+    lab = labels.long()
+    m = torch.full((n,), -1e30, device=hidden.device)
+    l = torch.zeros((n,), device=hidden.device)
+    s = torch.zeros((n,), device=hidden.device)
+    for off in range(0, v, min(block_v, v)):
+        m, l, s = checkpoint(_chunk_merge, m, l, s, hidden,
+                             weight[:, off:off + block_v], off, lab,
+                             use_reentrant=False)
+    return m + torch.log(l) - s
 
 
 def linear_cross_entropy(hidden, weight, label, ignore_index: int = -100,
-                         reduction: str = "mean", mode: str = "dense"):
-    """LM-head projection + cross entropy: ``hidden`` [..., E] @ ``weight``
-    [E, V] in fp32, int ``label`` [...]. Only the dense mode (the whole
-    [..., V] logits) is ported."""
+                         reduction: str = "mean", mode: str = "auto"):
+    """LM-head projection fused with softmax cross entropy
+    (``paddle_tpu/nn/functional.py:406-478``): ``hidden`` [..., E] @
+    ``weight`` [E, V] against int ``label`` [...], positions at
+    ``ignore_index`` masked out. ``mode``:
+
+    - ``"fused"``: ``kernels.linear_xent.fused_linear_cross_entropy``, the
+      [N, V] logits never stored: the vocab-tiled kernels on CUDA tensors
+      (bfloat16; other types raise, no quiet fallback), their plain
+      versions on CPU tensors;
+    - ``"chunked"``: ``chunked_linear_cross_entropy``, plain PyTorch;
+    - ``"dense"``: the whole logits, rounded to the input type by the
+      product and then taken to fp32, and ``cross_entropy``;
+    - ``"auto"``: fused on CUDA tensors, dense on CPU tensors (the JAX
+      package: fused on the TPU, dense off it).
+    """
     check_head_mode(mode)
     e = hidden.shape[-1]
+    flat = hidden.reshape(-1, e)
     lab = label.reshape(-1)
-    logits = (hidden.reshape(-1, e) @ weight).float()
-    loss = softmax_with_cross_entropy(logits, lab, ignore_index)
-    loss = _reduce_valid(loss, lab != ignore_index, reduction)
+    if mode == "auto":
+        mode = "fused" if flat.device.type == "cuda" else "dense"
+    if mode == "fused":
+        loss = kernels.linear_xent.fused_linear_cross_entropy(flat, weight,
+                                                              lab)
+    elif mode == "chunked":
+        loss = chunked_linear_cross_entropy(flat, weight, lab)
+    else:
+        loss = softmax_with_cross_entropy((flat @ weight).float(), lab,
+                                          ignore_index)
+    valid = lab != ignore_index
+    loss = _reduce_valid(torch.where(valid, loss, 0.0), valid, reduction)
     return loss.reshape(label.shape) if reduction == "none" else loss
 
 
 def next_token_linear_loss(hidden, weight, labels, ignore_index: int = -100,
-                           mode: str = "dense"):
+                           mode: str = "auto"):
     """Causal-LM head loss over ``hidden`` [B, T, E] with same-position
     ``labels`` [B, T]: the labels shift left one step and the last
-    position is ignored."""
+    position is ignored, so all B·T rows go through the head."""
     check_head_mode(mode)
     shifted = torch.cat([labels[:, 1:], torch.full_like(labels[:, :1],
                                                         ignore_index)], 1)

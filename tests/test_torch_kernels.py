@@ -436,12 +436,29 @@ def test_build_is_content_addressed():
     assert a.name.startswith("rms_norm-") and a != b
 
 
+HEAD_TOL = {"linear_xent_fwd": (1e-3, 1e-4, False),
+            "linear_xent_dh": (1e-3, 2.0 ** -7, True),
+            "linear_xent_dw": (1e-3, 2.0 ** -7, True)}
+
+
+def _head_faults(plain, h, w, lab, extra):
+    """The plain head with one term taken out: no label logit (forward);
+    no one-hot term, and no softmax term (lse at +inf), for dH and dW."""
+    no_labels = torch.full_like(lab, -100)
+    if not extra:
+        return [plain(h, w, no_labels)]
+    lse, g = extra
+    return [plain(h, w, no_labels, lse, g),
+            plain(h, w, lab, torch.full_like(lse, float("inf")), g)]
+
+
 @pytest.mark.parametrize("name", _support.KERNELS)
 def test_kernel_on_card(name):
     """Each CUDA kernel against its plain version on the card, bf16.
     Tolerance 2e-2 abs + rel: bf16 output rounding (2^-8 relative) plus
-    another fp32 summation order; AdamW, elementwise fp32, is held tighter
-    (``update_mismatch``)."""
+    another fp32 summation order; AdamW, elementwise fp32, and the fused
+    head are held tighter (``update_mismatch``, ``linear_xent.mismatch``),
+    and planted faults must fail their checks."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (runs on the H100; the CPU run "
                     "covers the plain versions)")
@@ -488,6 +505,29 @@ def test_kernel_on_card(name):
             assert A.update_mismatch(before, gr, got, want, **ADAMW_STEP) <= 1
             assert A.update_mismatch(before, gr, before, want,
                                      **ADAMW_STEP) > 1
+        return
+    elif name.startswith("linear_xent"):
+        # ragged: N, E and V off every tile, rows at -100, V - 1 picked;
+        # held as chip_smoke holds them (``LX.mismatch``), and planted
+        # faults must fail the same check
+        from paddle_tpu_torch.kernels import linear_xent as LX
+        h, w = rn(300, 136), (rn(136, 1003).float() * 0.05).bfloat16()
+        lab = torch.randint(0, 1003, (300,), generator=g, device="cuda")
+        lab[::7], lab[1] = -100, 1002
+        lse, _ = LX.linear_xent_fwd_reference(h, w, lab)
+        gr = torch.rand(300, generator=g, device="cuda")
+        kern, plain, extra = {
+            "linear_xent_fwd": (LX.linear_xent_fwd,
+                                LX.linear_xent_fwd_reference, ()),
+            "linear_xent_dh": (LX.linear_xent_dh,
+                               LX.linear_xent_dh_reference, (lse, gr)),
+            "linear_xent_dw": (LX.linear_xent_dw,
+                               LX.linear_xent_dw_reference, (lse, gr))}[name]
+        want = plain(h, w, lab, *extra)
+        assert LX.mismatch(kern(h, w, lab, *extra), want,
+                           *HEAD_TOL[name]) <= 1
+        for bad in _head_faults(plain, h, w, lab, extra):
+            assert LX.mismatch(bad, want, *HEAD_TOL[name]) > 1
         return
     else:
         q, kn, vn = rn(2, 1, 8, 128), rn(2, 2, 1, 128), rn(2, 2, 1, 128)

@@ -17,9 +17,15 @@ same fp32 arithmetic in another summation order:
   turns fp32 summation noise in a gradient near eps=1e-8 into a visible
   change of that weight's step: at a peak of 1e-3 one weight of 10752
   (``blocks.0.mlp.gate``) landed 2.1e-6 from the JAX package's.
+The same loss and gradient tolerances hold for every head mode (tied and
+untied) and every recompute policy; the steps run with the default
+config and with ``bench.py``'s (fused head, ``save_mlp_dots_attn``).
+Gradients under a policy against the port without recompute: rtol 1e-6,
+atol 1e-7 (the same ops, recomputed).
 """
 
 import dataclasses
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -51,13 +57,32 @@ B, T, IGNORE = 2, 128, -100
 GRAD_TOL = dict(atol=1e-5, rtol=1e-4)
 
 
-def _pair(remat: bool):
-    jm = JaxLlama(dataclasses.replace(JaxConfig.tiny(), remat=remat),
+def _pair(remat: bool, **cfg):
+    """The JAX model from a key and the port's carrying its weights, both
+    ``tiny()`` with ``remat`` and the other config fields ``cfg``."""
+    jm = JaxLlama(dataclasses.replace(JaxConfig.tiny(), remat=remat, **cfg),
                   key=jax.random.PRNGKey(3))
     tm = LlamaForCausalLM(dataclasses.replace(LlamaConfig.tiny(),
-                                              remat=remat), device="cpu")
+                                              remat=remat, **cfg),
+                          device="cpu")
     bridge.load_jax_state_dict(tm, state_dict(jm))
     return jm, tm
+
+
+def _loss_and_grads_match_jax(jm, tm, seed=0):
+    ids, labels = _batch(seed)
+    want, jgrads = jax.value_and_grad(
+        lambda m: m.loss(jnp.asarray(ids), jnp.asarray(labels)))(jm)
+    loss = tm.loss(_t(ids), _t(labels))
+    loss.backward()
+    np.testing.assert_allclose(loss.item(), float(want), rtol=1e-5)
+    want_g = bridge.from_jax_state_dict(state_dict(jgrads), 2)
+    got_g = bridge.grads_state_dict(tm)
+    assert sorted(got_g) == sorted(want_g)
+    for name in want_g:
+        np.testing.assert_allclose(got_g[name], want_g[name], **GRAD_TOL,
+                                   err_msg=name)
+    return got_g
 
 
 def _batch(seed=0):
@@ -74,19 +99,84 @@ def _t(a):
 
 @pytest.mark.parametrize("remat", [False, True])
 def test_loss_and_every_gradient_match_jax(remat):
-    jm, tm = _pair(remat)
-    ids, labels = _batch()
-    want, jgrads = jax.value_and_grad(
-        lambda m: m.loss(jnp.asarray(ids), jnp.asarray(labels)))(jm)
-    loss = tm.loss(_t(ids), _t(labels))
-    loss.backward()
-    np.testing.assert_allclose(loss.item(), float(want), rtol=1e-5)
-    want_g = bridge.from_jax_state_dict(state_dict(jgrads), 2)
-    got_g = bridge.grads_state_dict(tm)
-    assert sorted(got_g) == sorted(want_g)
-    for name in want_g:
-        np.testing.assert_allclose(got_g[name], want_g[name], **GRAD_TOL,
+    _loss_and_grads_match_jax(*_pair(remat))
+
+
+@pytest.mark.parametrize("tied", [False, True])
+@pytest.mark.parametrize("mode", ["fused", "chunked", "auto"])
+def test_head_modes_match_jax(mode, tied):
+    """Loss and every gradient through each head mode, untied and tied
+    (the head weight is then the embedding transposed), against the JAX
+    model in the same mode (on the CPU its fused mode runs the chunked
+    arm and auto the dense one)."""
+    _loss_and_grads_match_jax(*_pair(False, lm_head_mode=mode,
+                                     tie_embeddings=tied))
+
+
+@pytest.mark.parametrize("policy", scan.REMAT_POLICIES)
+def test_remat_policies_match_no_remat_and_jax(policy):
+    """Every recompute policy of the JAX package: the same loss and
+    gradients as no recompute, and as the JAX model under that policy."""
+    got = _loss_and_grads_match_jax(*_pair(True, remat_policy=policy),
+                                    seed=1)
+    _, plain = _pair(False)
+    ids, labels = _batch(1)
+    plain.loss(_t(ids), _t(labels)).backward()
+    for name, g in bridge.grads_state_dict(plain).items():
+        np.testing.assert_allclose(got[name], g, rtol=1e-6, atol=1e-7,
                                    err_msg=name)
+
+
+def test_remat_policy_names_match_jax():
+    from paddle_tpu.nn.scan import REMAT_POLICIES
+    assert sorted(scan.REMAT_POLICIES) == sorted(REMAT_POLICIES)
+    with pytest.raises(ValueError):
+        scan.check_remat_policy("bogus")
+
+
+def test_save_mlp_dots_keeps_the_gate_and_up_products():
+    """Products by the MLP's gate and up weights (the projections, not
+    their gradients, whose second factor is the output gradient): 2 a
+    layer in the forward. Recomputing everything runs them again in
+    backward; ``save_mlp_dots`` keeps their outputs and runs none; the
+    gradients agree."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class GateUpProducts(TorchDispatchMode):
+        def __init__(self, weights):
+            super().__init__()
+            self.weights = {(w.data_ptr(), w.stride()) for w in weights}
+            self.n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if func is torch.ops.aten.mm.default and (
+                    args[1].data_ptr(), args[1].stride()) in self.weights:
+                self.n += 1
+            return func(*args, **(kwargs or {}))
+
+    ids, labels = _batch(1)
+    counts, grads = {}, {}
+    for remat, policy in ((False, "nothing_saveable"),
+                          (True, "nothing_saveable"), (True, "save_mlp_dots")):
+        _, tm = _pair(remat, remat_policy=policy)
+        weights = [lin.weight for b in tm.blocks
+                   for lin in (b.mlp.gate, b.mlp.up)]
+        fwd, bwd = GateUpProducts(weights), GateUpProducts(weights)
+        with fwd:
+            loss = tm.loss(_t(ids), _t(labels))
+        with bwd:
+            loss.backward()
+        counts[remat, policy] = (fwd.n, bwd.n)
+        grads[remat, policy] = bridge.grads_state_dict(tm)
+    L = LlamaConfig.tiny().num_layers
+    assert counts == {(False, "nothing_saveable"): (2 * L, 0),
+                      (True, "nothing_saveable"): (2 * L, 2 * L),
+                      (True, "save_mlp_dots"): (2 * L, 0)}
+    for key in grads:
+        for name, g in grads[key].items():
+            np.testing.assert_allclose(
+                g, grads[False, "nothing_saveable"][name], rtol=1e-6,
+                atol=1e-7, err_msg=f"{key} {name}")
 
 
 def test_remat_recomputes_each_block_in_backward(monkeypatch):
@@ -140,12 +230,22 @@ def test_backward_goes_through_the_kernel_functions():
 SCHEDULE = (1e-4, 1, 10)       # warmup_cosine(peak, warmup, total)
 
 
+# (lm_head_mode, remat_policy) of the step tests: the defaults, and
+# bench.py's (fused head, save_mlp_dots_attn)
+STEP_CONFIGS = [("dense", "nothing_saveable"), ("fused", "save_mlp_dots_attn")]
+
+
 @pytest.fixture(scope="module")
 def jax_run():
+    return _jax_steps(*STEP_CONFIGS[0])
+
+
+@functools.cache
+def _jax_steps(head, policy):
     """Three JAX ``build_train_step`` steps from the remat model: per step
     the loss, grad_norm, port-named parameters and the AdamState as
     ``(count, mu, nu)`` of numpy copies (the step donates its state)."""
-    jm, _ = _pair(True)
+    jm, _ = _pair(True, lm_head_mode=head, remat_policy=policy)
     ids, labels = _batch(2)
     mesh = jax_mesh.create_mesh({"dp": 1}, devices=jax.devices()[:1])
     with jax_mesh.MeshContext(mesh):
@@ -200,8 +300,10 @@ def _assert_moments(opt_state, adam):
                                        rtol=1e-4, err_msg=name)
 
 
-def test_train_steps_match_jax(jax_run):
-    _, tm = _pair(True)
+@pytest.mark.parametrize("head,policy", STEP_CONFIGS)
+def test_train_steps_match_jax(head, policy):
+    jax_run = _jax_steps(head, policy)
+    _, tm = _pair(True, lm_head_mode=head, remat_policy=policy)
     step = _port_step(tm)
     state = step.init_state(tm)
     for i, (loss, gnorm, params, _) in enumerate(jax_run):
@@ -263,40 +365,21 @@ def test_cross_entropy_matches_jax(reduction):
     np.testing.assert_allclose(got, np.asarray(want), rtol=1e-5, atol=1e-6)
 
 
-def test_linear_cross_entropy_dense_matches_jax_and_others_raise():
+@pytest.mark.parametrize("mode", ["dense", "fused", "chunked", "auto"])
+def test_next_token_linear_loss_matches_jax(mode):
     rs = np.random.RandomState(6)
     h, w = rs.randn(2, 9, 16).astype(np.float32), \
         rs.randn(16, 40).astype(np.float32)
     labels = rs.randint(0, 40, (2, 9))
+    labels[1, 4] = IGNORE
     got = TF.next_token_linear_loss(torch.from_numpy(h), torch.from_numpy(w),
-                                    torch.from_numpy(labels))
-    want = JF.next_token_linear_loss(jnp.asarray(h), jnp.asarray(w),
-                                     jnp.asarray(labels), mode="dense")
-    np.testing.assert_allclose(got.item(), float(want), rtol=1e-5)
-    for mode in ("fused", "chunked", "auto"):
-        with pytest.raises(NotImplementedError, match="fused-head slice"):
-            TF.linear_cross_entropy(torch.from_numpy(h), torch.from_numpy(w),
                                     torch.from_numpy(labels), mode=mode)
+    want = JF.next_token_linear_loss(jnp.asarray(h), jnp.asarray(w),
+                                     jnp.asarray(labels), mode=mode)
+    np.testing.assert_allclose(got.item(), float(want), rtol=1e-5)
     with pytest.raises(ValueError):
-        TF.linear_cross_entropy(torch.from_numpy(h), torch.from_numpy(w),
-                                torch.from_numpy(labels), mode="bogus")
-    _, tm = _pair(False)
-    tm.config = dataclasses.replace(tm.config, lm_head_mode="fused")
-    with pytest.raises(NotImplementedError):
-        tm.loss(_t(_batch()[0]), _t(_batch()[1]))
-
-
-def test_named_remat_policies_raise():
-    _, tm = _pair(True)
-    ids, labels = _batch()
-    for policy in scan.NAMED_POLICIES:
-        tm.config = dataclasses.replace(tm.config, remat_policy=policy)
-        with pytest.raises(NotImplementedError, match=policy):
-            tm.loss(_t(ids), _t(labels))
-        with torch.no_grad():       # no recompute without gradients
-            tm.loss(_t(ids), _t(labels))
-    with pytest.raises(ValueError):
-        scan.check_remat_policy("bogus")
+        TF.next_token_linear_loss(torch.from_numpy(h), torch.from_numpy(w),
+                                  torch.from_numpy(labels), mode="bogus")
 
 
 @pytest.mark.parametrize("section", ["sharding", "pipeline", "amp",
