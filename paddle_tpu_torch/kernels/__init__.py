@@ -1,6 +1,6 @@
 """The port's hand-written Hopper kernels, one module each, with the plain
-PyTorch version of each beside it: ``norm`` (RMSNorm forward and
-backward), ``rope.apply_rotary``, ``flash_attention`` (forward and the dq
+PyTorch version of each beside it: ``norm`` (RMSNorm and LayerNorm,
+forward and backward), ``rope.apply_rotary``, ``flash_attention`` (forward and the dq
 and dk/dv backward), ``decode_attention.decode_attention``,
 ``adamw.adamw_update`` and ``linear_xent`` (the fused LM head ⊗
 cross-entropy forward, dH and dW). The differentiable ones are

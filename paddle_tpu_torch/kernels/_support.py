@@ -26,7 +26,7 @@ Counting. ``LAUNCHES[name]`` is a plain int that the wrapper raises by
 one where it launches its kernel, and nowhere else. A kernel's name is
 its counter's; ``SOURCES`` maps it to the ``.cu`` file that holds it
 (one source may hold several kernels, e.g. the forward and backward of
-RMSNorm).
+RMSNorm, or of LayerNorm).
 """
 
 from __future__ import annotations
@@ -49,6 +49,8 @@ __all__ = ["KERNELS", "SOURCES", "LAUNCHES", "reset_launches",
 SOURCES = {
     "rms_norm": "rms_norm",
     "rms_norm_bwd": "rms_norm",
+    "layer_norm": "layer_norm",
+    "layer_norm_bwd": "layer_norm",
     "rope": "rope",
     "flash_attention": "flash_attention",
     "flash_attention_bwd_dq": "flash_attention_bwd",

@@ -1,6 +1,6 @@
-"""Pieces shared by the decoder-only families: the causal-LM loss with
-its head modes (``paddle_tpu/models/_common.py:10-28``) and the static KV
-cache in the float layout (``:40-182``)."""
+"""Pieces shared by the decoder-only families (Llama, GPT): the causal-LM
+loss with its head modes (``paddle_tpu/models/_common.py:10-28``) and the
+static KV cache in the float layout (``:40-182``)."""
 
 from __future__ import annotations
 
@@ -16,21 +16,22 @@ __all__ = ["causal_lm_loss", "cached_attention", "apply_cache_writes",
 
 
 def causal_lm_loss(model, head_weight, input_ids, labels,
-                   ignore_index: int = -100):
+                   ignore_index: int = -100, **forward_kw):
     """Next-token loss of a decoder-only model. ``cfg.lm_head_mode !=
     "dense"`` fuses the head projection into the loss: the trunk's hidden
     states and the [E, V] ``head_weight`` (tied models pass
     ``embed.weight.T``) go to ``F.next_token_linear_loss`` over all T
     rows, so the [B, T, V] logits never exist. ``"dense"`` takes the
     model's logits ``[:, :-1]`` to fp32 against ``labels[:, 1:]`` in
-    ``cross_entropy``."""
+    ``cross_entropy``. ``forward_kw`` (GPT's ``training`` and
+    ``generator``) go to the trunk."""
     mode = model.config.lm_head_mode
     F.check_head_mode(mode)
     if mode != "dense":
-        return F.next_token_linear_loss(model.hidden_states(input_ids),
-                                        head_weight, labels,
-                                        ignore_index=ignore_index, mode=mode)
-    logits = model(input_ids)
+        return F.next_token_linear_loss(
+            model.hidden_states(input_ids, **forward_kw), head_weight,
+            labels, ignore_index=ignore_index, mode=mode)
+    logits = model(input_ids, **forward_kw)
     return F.cross_entropy(logits[:, :-1].float(), labels[:, 1:],
                            ignore_index=ignore_index)
 

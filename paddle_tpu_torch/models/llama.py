@@ -93,7 +93,8 @@ class LlamaAttention(nn.Module):
         kv_dim = cfg.num_kv_heads * cfg.head_dim
         std = cfg.init_std
         out_std = cfg.init_std / math.sqrt(2 * cfg.num_layers)
-        kw = dict(device=device, dtype=dtype, generator=generator)
+        kw = dict(bias=False, device=device, dtype=dtype,
+                  generator=generator)
         self.wq = Linear(E, E, std=std, **kw)
         self.wk = Linear(E, kv_dim, std=std, **kw)
         self.wv = Linear(E, kv_dim, std=std, **kw)
@@ -127,7 +128,8 @@ class LlamaMLP(nn.Module):
     def __init__(self, cfg: LlamaConfig, *, device, dtype, generator):
         super().__init__()
         E, F_ = cfg.hidden_size, cfg.intermediate_size
-        kw = dict(device=device, dtype=dtype, generator=generator)
+        kw = dict(bias=False, device=device, dtype=dtype,
+                  generator=generator)
         self.gate = Linear(E, F_, std=cfg.init_std, **kw)
         self.up = Linear(E, F_, std=cfg.init_std, **kw)
         self.down = Linear(F_, E, std=cfg.init_std / math.sqrt(
@@ -186,7 +188,7 @@ class LlamaForCausalLM(nn.Module):
             for _ in range(cfg.num_layers))
         self.norm = RMSNorm(cfg.hidden_size, epsilon=cfg.rms_eps, **kw)
         self.lm_head = (None if cfg.tie_embeddings else
-                        Linear(cfg.hidden_size, cfg.vocab_size,
+                        Linear(cfg.hidden_size, cfg.vocab_size, bias=False,
                                std=cfg.init_std, generator=generator, **kw))
         self.config = cfg
 
@@ -252,12 +254,14 @@ class LlamaForCausalLM(nn.Module):
                                    index)
         return self._head(self.norm(x)), cache
 
-    def loss(self, input_ids, labels, ignore_index: int = -100):
+    def loss(self, input_ids, labels, ignore_index: int = -100,
+             generator: torch.Generator | None = None):
         """Next-token cross entropy (labels equal to the inputs for LM
         training on packed sequences, positions at ``ignore_index``
         skipped) through ``cfg.lm_head_mode`` — see
         ``_common.causal_lm_loss``. A tied model's head weight is the
-        embedding table transposed."""
+        embedding table transposed. Llama has no dropout: ``generator``
+        is taken for the training step's call and not used."""
         weight = (self.lm_head.weight if self.lm_head is not None
                   else self.embed.weight.T)
         return causal_lm_loss(self, weight, input_ids, labels, ignore_index)

@@ -1,7 +1,9 @@
 """Functional ops — the subset of ``paddle_tpu/nn/functional.py`` that the
-Llama serving and training paths need. Hot ops go through the port's
-kernels (``paddle_tpu_torch.kernels``), which launch on CUDA tensors and
-run their plain versions on CPU tensors; all of them are differentiable.
+Llama, GPT and ERNIE serving and training paths need. Hot ops go through
+the port's kernels (``paddle_tpu_torch.kernels``), which launch on CUDA
+tensors and run their plain versions on CPU tensors; all of them are
+differentiable. Randomness (``dropout``) comes from the caller's
+``torch.Generator``, never from torch's global RNG.
 """
 
 from __future__ import annotations
@@ -13,8 +15,8 @@ from torch.utils.checkpoint import checkpoint
 
 from paddle_tpu_torch import kernels
 
-__all__ = ["silu", "swiglu", "linear", "embedding", "rms_norm",
-           "rotary_embedding", "apply_rotary",
+__all__ = ["silu", "swiglu", "gelu", "linear", "embedding", "dropout",
+           "rms_norm", "layer_norm", "rotary_embedding", "apply_rotary",
            "scaled_dot_product_attention", "softmax_with_cross_entropy",
            "cross_entropy", "check_head_mode", "linear_cross_entropy",
            "chunked_linear_cross_entropy", "next_token_linear_loss"]
@@ -31,6 +33,13 @@ def swiglu(x, gate):
     return silu(gate) * x
 
 
+def gelu(x, approximate: bool = False):
+    """GELU; ``approximate`` takes the tanh form (``jax.nn.gelu``'s
+    ``approximate=True``, which GPT and ERNIE use)."""
+    return torch.nn.functional.gelu(x, approximate="tanh" if approximate
+                                    else "none")
+
+
 def linear(x, weight, bias=None):
     """y = x @ W (+ b) with the JAX package's weight layout [in, out]."""
     y = torch.matmul(x, weight)
@@ -44,10 +53,40 @@ def embedding(ids, weight):
     return weight[ids]
 
 
+def dropout(x, p: float = 0.5, training: bool = True,
+            generator: torch.Generator | None = None):
+    """Inverted dropout (``paddle_tpu/nn/functional.py:284-298``): each
+    element kept with probability ``1 - p`` and scaled by ``1 / (1 -
+    p)``. The keep mask is drawn from ``generator`` (on ``x``'s device),
+    which training requires: the port never draws from torch's global
+    RNG. Identity when not ``training`` or ``p == 0``."""
+    if not training or p == 0.0:
+        return x
+    if generator is None:
+        raise ValueError("dropout(training=True) needs a torch.Generator: "
+                         "pass generator= (the training step passes one, "
+                         "seeded per step)")
+    keep = 1.0 - p
+    u = torch.rand(x.shape, generator=generator, device=x.device)
+    return torch.where(u < keep, x / keep, torch.zeros_like(x))
+
+
 def rms_norm(x, weight, epsilon: float = 1e-6):
     """RMSNorm over the last axis (fp32 statistics) — the rms_norm
     kernel."""
     return kernels.norm.rms_norm(x, weight, epsilon)
+
+
+def layer_norm(x, weight=None, bias=None, epsilon: float = 1e-5):
+    """LayerNorm over the last axis (fp32 statistics) — the layer_norm
+    kernel. A missing weight is ones and a missing bias zeros, as in the
+    JAX package's Pallas path."""
+    h = x.shape[-1]
+    if weight is None:
+        weight = torch.ones(h, dtype=x.dtype, device=x.device)
+    if bias is None:
+        bias = torch.zeros(h, dtype=weight.dtype, device=x.device)
+    return kernels.norm.layer_norm(x, weight, bias, epsilon)
 
 
 def rotary_embedding(positions, dim: int, base: float = 10000.0):
@@ -65,15 +104,44 @@ def apply_rotary(x, cos, sin):
     return kernels.rope.apply_rotary(x, cos, sin)
 
 
-def scaled_dot_product_attention(q, k, v, *, causal: bool = False,
+def scaled_dot_product_attention(q, k, v, mask=None, *,
+                                 causal: bool = False,
                                  scale: float | None = None):
     """Attention core over [B, T, H, D], grouped-query heads allowed
-    (Hq % Hkv == 0) — the flash kernel on CUDA, its plain einsum version
-    on the CPU. Never torch's own fused attention."""
+    (Hq % Hkv == 0). Never torch's own fused attention.
+
+    Without ``mask``: the flash kernel on CUDA, its plain einsum version
+    on the CPU — where the JAX package dispatches its Pallas kernel
+    (``paddle_tpu/nn/functional.py:573-587``).
+
+    With ``mask`` (broadcastable to [B, H, Tq, Tk]; True or non-zero =
+    attend, as ``jnp.where(mask, ...)`` reads it): the JAX package's
+    einsum arm (``:594-611``) in torch ops — scores in the input type,
+    masked with the type's lowest value, softmax in fp32, probabilities
+    cast back before the product. That arm is plain XLA in the JAX
+    package, not a Pallas kernel, so it is no kernel fallback here; it
+    runs on CUDA tensors as on CPU tensors."""
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
-    return kernels.flash_attention.flash_attention(q, k, v, causal=causal,
-                                                   scale=scale)
+    if mask is None:
+        return kernels.flash_attention.flash_attention(q, k, v,
+                                                       causal=causal,
+                                                       scale=scale)
+    Hq, Hkv = q.shape[2], k.shape[2]
+    if Hkv != Hq:
+        k = k.repeat_interleave(Hq // Hkv, dim=2)
+        v = v.repeat_interleave(Hq // Hkv, dim=2)
+    logits = torch.einsum("bqhd,bkhd->bhqk", q, k) * scale
+    lowest = torch.finfo(logits.dtype).min
+    Tq, Tk = q.shape[1], k.shape[1]
+    if causal:
+        keep = torch.ones(Tq, Tk, dtype=torch.bool, device=q.device).tril(
+            Tk - Tq)
+        logits = logits.masked_fill(~keep, lowest)
+    keep = mask if mask.dtype == torch.bool else mask != 0
+    logits = logits.masked_fill(~keep, lowest)
+    probs = torch.softmax(logits.float(), dim=-1).to(q.dtype)
+    return torch.einsum("bhqk,bkhd->bqhd", probs, v)
 
 
 # ---------------------------------------------------------------------------

@@ -1,4 +1,5 @@
-"""``RMSNorm`` — counterpart of ``paddle_tpu/nn/norm.py:49``."""
+"""``RMSNorm`` and ``LayerNorm`` — counterparts of
+``paddle_tpu/nn/norm.py:49`` and ``:31-46``."""
 
 from __future__ import annotations
 
@@ -7,7 +8,7 @@ from torch import nn
 
 from paddle_tpu_torch.nn import functional as F
 
-__all__ = ["RMSNorm"]
+__all__ = ["RMSNorm", "LayerNorm"]
 
 
 class RMSNorm(nn.Module):
@@ -22,3 +23,20 @@ class RMSNorm(nn.Module):
 
     def forward(self, x):
         return F.rms_norm(x, self.weight, self.epsilon)
+
+
+class LayerNorm(nn.Module):
+    """LayerNorm over the last axis (the GPT and ERNIE norm); weight starts
+    at ones and bias at zeros."""
+
+    def __init__(self, dim: int, *, epsilon: float = 1e-5, device=None,
+                 dtype=torch.float32):
+        super().__init__()
+        self.weight = nn.Parameter(
+            torch.ones((dim,), device=device, dtype=dtype))
+        self.bias = nn.Parameter(
+            torch.zeros((dim,), device=device, dtype=dtype))
+        self.epsilon = float(epsilon)
+
+    def forward(self, x):
+        return F.layer_norm(x, self.weight, self.bias, self.epsilon)

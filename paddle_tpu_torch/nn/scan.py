@@ -30,6 +30,15 @@ policy, and only the aten ops around them are saved or recomputed. So
 under ``save_mlp_dots_attn`` the flash forward still runs twice a step:
 the ``wo`` projection's output is saved, but its weight gradient needs
 its input, the attention output, which is recomputed.
+
+Dropout under recompute: ``torch.utils.checkpoint`` restores torch's
+global RNG states for the recompute, not a caller's ``torch.Generator``,
+so a recomputed block would draw other dropout masks than its forward
+did and its gradients would be wrong. The JAX package replays each
+layer's key (``paddle_tpu/nn/scan.py:159-187``); ``run_blocks`` replays
+each block's generator state: it notes the state before the block's
+forward, sets it again before the recompute, and puts the generator back
+where the caller's stream had reached afterwards.
 """
 
 from __future__ import annotations
@@ -105,19 +114,46 @@ def _context_fn(policy: str):
     return functools.partial(create_selective_checkpoint_contexts, policy_fn)
 
 
+def _replaying(block, generator: torch.Generator):
+    """``block`` wrapped so that every call starts from ``generator``'s
+    present state: the recompute draws the forward's dropout masks. The
+    first call leaves the generator advanced, as a plain forward would;
+    a later call (the recompute, during backward) restores the state it
+    found."""
+    start = generator.get_state()
+    calls = [0]
+
+    def run(*args, **kwargs):
+        found = generator.get_state()
+        generator.set_state(start)
+        try:
+            return block(*args, **kwargs)
+        finally:
+            if calls[0]:
+                generator.set_state(found)
+            calls[0] += 1
+    return run
+
+
 def run_blocks(blocks, x, *args, remat: bool = False,
-               policy: str = "nothing_saveable"):
-    """``x`` through each block in order, ``block(x, *args)``. With
-    ``remat`` and gradients enabled, each block keeps its inputs and what
-    ``policy`` saves, and recomputes the rest of its forward in
-    backward."""
+               policy: str = "nothing_saveable",
+               generator: torch.Generator | None = None, **kwargs):
+    """``x`` through each block in order, ``block(x, *args, **kwargs)``
+    (plus ``generator=generator`` when one is given). With ``remat`` and
+    gradients enabled, each block keeps its inputs and what ``policy``
+    saves, and recomputes the rest of its forward in backward, replaying
+    its draws from ``generator``."""
+    if generator is not None:
+        kwargs["generator"] = generator
     if remat and torch.is_grad_enabled():
         check_remat_policy(policy)
         context_fn = _context_fn(policy)
         kw = {} if context_fn is None else {"context_fn": context_fn}
         for block in blocks:
-            x = checkpoint(block, x, *args, use_reentrant=False, **kw)
+            fn = block if generator is None else _replaying(block, generator)
+            x = checkpoint(fn, x, *args, use_reentrant=False, **kw,
+                           **kwargs)
         return x
     for block in blocks:
-        x = block(x, *args)
+        x = block(x, *args, **kwargs)
     return x

@@ -1,0 +1,242 @@
+"""The port's CUDA kernels against their plain versions, on the card.
+
+This module imports neither ``jax`` nor the JAX package, so it runs on a
+host with a GPU and no JAX. The repository's ``tests/conftest.py`` imports
+JAX, so on such a host run it without the conftest:
+
+    python -m pytest --noconftest tests/test_torch_card.py -q
+
+Every test skips without a CUDA device (the CPU run holds the plain
+versions against the JAX package in the other ``test_torch_*`` files).
+Each check comes with planted faults that must fail it, so a check too
+loose to see a wrong kernel fails too.
+"""
+
+import math
+
+import pytest
+import torch
+
+from paddle_tpu_torch.kernels import _support
+from paddle_tpu_torch.kernels import adamw as A
+from paddle_tpu_torch.kernels import decode_attention as DA
+from paddle_tpu_torch.kernels import flash_attention as FA
+from paddle_tpu_torch.kernels import norm as N
+from paddle_tpu_torch.kernels import rope as R
+
+pytestmark = pytest.mark.port
+
+ADAMW_STEP = dict(lr=3e-4, step=10)
+HEAD_TOL = {"linear_xent_fwd": (1e-3, 1e-4, False),
+            "linear_xent_dh": (1e-3, 2.0 ** -7, True),
+            "linear_xent_dw": (1e-3, 2.0 ** -7, True)}
+# bf16 kernel against its plain version: output rounding (2^-8 relative)
+# plus another fp32 summation order
+ATOL = RTOL = 2e-2
+
+
+def _adamw_state(shape, p_dtype, gen, device):
+    """``((p0, m0, v0), g)``: p at Llama's init scale (0.02), g at 1e-3 in
+    p's type, and fp32 moments as ``step - 1`` earlier gradients of that
+    scale leave them, so that one step moves p by a few ulps even in
+    bf16."""
+    def rn():
+        return torch.randn(*shape, generator=gen, device=device)
+    s, gs = ADAMW_STEP["step"], 1e-3
+    p0 = (0.02 * rn()).to(p_dtype)
+    m0 = (1 - 0.9 ** (s - 1)) * gs * rn()
+    v0 = (1 - 0.999 ** (s - 1)) * (gs * rn()) ** 2
+    return (p0, m0, v0), (gs * rn()).to(p_dtype)
+
+
+def _head_faults(plain, h, w, lab, extra):
+    """The plain head with one term taken out: no label logit (forward);
+    no one-hot term, and no softmax term (lse at +inf), for dH and dW."""
+    no_labels = torch.full_like(lab, -100)
+    if not extra:
+        return [plain(h, w, no_labels)]
+    lse, g = extra
+    return [plain(h, w, no_labels, lse, g),
+            plain(h, w, lab, torch.full_like(lse, float("inf")), g)]
+
+
+def _generator():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (runs on the H100; the CPU run "
+                    "covers the plain versions)")
+    return torch.Generator(device="cuda").manual_seed(0)
+
+
+def _close(got, want, rtol=RTOL, atol=ATOL):
+    if isinstance(got, torch.Tensor):
+        got, want = (got,), (want,)
+    return all(torch.allclose(a.float(), b.float(), rtol=rtol, atol=atol)
+               for a, b in zip(got, want, strict=True))
+
+
+def _layer_norm_cases(g):
+    """``(x, w, b, gr)`` in bf16 at a ragged shape and GPT's decode row
+    count."""
+    for n, h in ((300, 776), (4, 4096)):
+        yield tuple(torch.randn(*s, generator=g, device="cuda")
+                    .to(torch.bfloat16) for s in ((n, h), (h,), (h,), (n, h)))
+
+
+def _ln_bwd_faults(x, w, mean, rstd, gr, want):
+    """The plain backward with one term taken out: dw without x̂ (Σ g),
+    db left out, dx without its mean(w·g) term."""
+    r = rstd[:, None]
+    xhat = (x.float() - mean[:, None]) * r
+    wg = gr.float() * w.float()
+    c2 = (wg * xhat).mean(-1, keepdim=True)
+    return {"dw without xhat": (want[0], gr.float().sum(0), want[2]),
+            "db left out": (want[0], want[1], torch.zeros_like(want[2])),
+            "dx without mean(wg)": ((r * (wg - xhat * c2)).to(x.dtype),
+                                    want[1], want[2])}
+
+
+@pytest.mark.parametrize("name", _support.KERNELS)
+def test_kernel_on_card(name):
+    """Each CUDA kernel against its plain version on the card, bf16.
+    Tolerance 2e-2 abs + rel: bf16 output rounding (2^-8 relative) plus
+    another fp32 summation order; AdamW, elementwise fp32, LayerNorm and
+    the fused head are held tighter (``update_mismatch``,
+    ``norm.layer_norm_mismatch`` / ``layer_norm_bwd_mismatch``,
+    ``linear_xent.mismatch``), and planted faults must fail their
+    checks."""
+    g = _generator()
+
+    def rn(*s):
+        return torch.randn(*s, generator=g, device="cuda").to(torch.bfloat16)
+
+    if name == "rms_norm":
+        x, w = rn(5, 4096), rn(4096)
+        got, want = N.rms_norm(x, w, 1e-5), N.rms_norm_reference(x, w, 1e-5)
+    elif name == "rope":
+        x = rn(2, 3, 8, 128)
+        cos = torch.rand(3, 64, generator=g, device="cuda")
+        sin = torch.rand(3, 64, generator=g, device="cuda")
+        got = R.apply_rotary(x, cos, sin)
+        want = R.apply_rotary_reference(x, cos, sin)
+    elif name == "rms_norm_bwd":
+        x, w, gr = rn(700, 4096), rn(4096), rn(700, 4096)
+        _, rstd = N.rms_norm_reference(x, w, 1e-5, return_rstd=True)
+        got = N.rms_norm_bwd(x, w, rstd, gr)
+        want = N.rms_norm_bwd_reference(x, w, rstd, gr)
+    elif name == "layer_norm":
+        for x, w, b, _ in _layer_norm_cases(g):
+            y = N.layer_norm(x, w, b, 1e-5)
+            want = N.layer_norm_reference(x, w, b, 1e-5)
+            torch.cuda.synchronize()
+            assert N.layer_norm_mismatch(x, w, b, y, want) <= 1
+            # planted fault: the bias left out
+            bad = N.layer_norm_reference(x, w, torch.zeros_like(b), 1e-5)
+            assert N.layer_norm_mismatch(x, w, b, bad, want) > 1
+        return
+    elif name == "layer_norm_bwd":
+        for x, w, b, gr in _layer_norm_cases(g):
+            _, mean, rstd = N.layer_norm_reference(x, w, b, 1e-5,
+                                                   return_stats=True)
+            got = N.layer_norm_bwd(x, w, mean, rstd, gr)
+            want = N.layer_norm_bwd_reference(x, w, mean, rstd, gr)
+            torch.cuda.synchronize()
+            assert N.layer_norm_bwd_mismatch(x, w, mean, rstd, gr, got,
+                                             want) <= 1
+            for fault, bad in _ln_bwd_faults(x, w, mean, rstd, gr,
+                                             want).items():
+                assert N.layer_norm_bwd_mismatch(x, w, mean, rstd, gr, bad,
+                                                 want) > 1, fault
+        return
+    elif name == "flash_attention":
+        q, k, v = rn(2, 77, 8, 128), rn(2, 77, 2, 128), rn(2, 77, 2, 128)
+        got = FA.flash_attention(q, k, v, causal=True)
+        want = FA.flash_attention_reference(q, k, v, causal=True)
+    elif name.startswith("flash_attention_bwd"):
+        q, k, v = rn(2, 77, 8, 128), rn(2, 77, 2, 128), rn(2, 77, 2, 128)
+        do = rn(2, 77, 8, 128)
+        o, lse = FA.flash_attention(q, k, v, causal=True, return_lse=True)
+        got = FA.flash_attention_bwd(q, k, v, o, lse, do)
+        want = FA.flash_attention_bwd_reference(q, k, v, o, lse, do)
+        pick = slice(0, 1) if name.endswith("_dq") else slice(1, 3)
+        got, want = got[pick], want[pick]
+    elif name == "adamw":
+        # each output at its own scale (update_mismatch), bf16 and fp32 p;
+        # a kernel that writes nothing must fail the same check
+        for p_dtype in (torch.bfloat16, torch.float32):
+            before, gr = _adamw_state((3, 1000), p_dtype, g, "cuda")
+            got = A.adamw_update(*(t.clone() for t in before), gr,
+                                 **ADAMW_STEP)
+            want = A.adamw_update_reference(*(t.clone() for t in before), gr,
+                                            **ADAMW_STEP)
+            assert A.update_mismatch(before, gr, got, want, **ADAMW_STEP) <= 1
+            assert A.update_mismatch(before, gr, before, want,
+                                     **ADAMW_STEP) > 1
+        return
+    elif name.startswith("linear_xent"):
+        # ragged: N, E and V off every tile, rows at -100, V - 1 picked;
+        # held as chip_smoke holds them (``LX.mismatch``), and planted
+        # faults must fail the same check
+        from paddle_tpu_torch.kernels import linear_xent as LX
+        h, w = rn(300, 136), (rn(136, 1003).float() * 0.05).bfloat16()
+        lab = torch.randint(0, 1003, (300,), generator=g, device="cuda")
+        lab[::7], lab[1] = -100, 1002
+        lse, _ = LX.linear_xent_fwd_reference(h, w, lab)
+        gr = torch.rand(300, generator=g, device="cuda")
+        kern, plain, extra = {
+            "linear_xent_fwd": (LX.linear_xent_fwd,
+                                LX.linear_xent_fwd_reference, ()),
+            "linear_xent_dh": (LX.linear_xent_dh,
+                               LX.linear_xent_dh_reference, (lse, gr)),
+            "linear_xent_dw": (LX.linear_xent_dw,
+                               LX.linear_xent_dw_reference, (lse, gr))}[name]
+        want = plain(h, w, lab, *extra)
+        assert LX.mismatch(kern(h, w, lab, *extra), want,
+                           *HEAD_TOL[name]) <= 1
+        for bad in _head_faults(plain, h, w, lab, extra):
+            assert LX.mismatch(bad, want, *HEAD_TOL[name]) > 1
+        return
+    else:
+        q, kn, vn = rn(2, 1, 8, 128), rn(2, 2, 1, 128), rn(2, 2, 1, 128)
+        cache = (rn(3, 2, 2, 90, 128), rn(3, 2, 2, 90, 128))
+        got = DA.decode_attention(q, kn, vn, cache, 2, 41)
+        want = DA.decode_attention_reference(q, kn, vn, cache, 2, 41)
+    torch.cuda.synchronize()
+    if isinstance(got, torch.Tensor):
+        got, want = (got,), (want,)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a.float(), b.float(), rtol=RTOL,
+                                   atol=ATOL)
+
+
+@pytest.mark.parametrize("part", ["fwd", "dq", "dkdv"])
+def test_flash_head_dim_64_non_causal_on_card(part):
+    """ERNIE's attention (D=64, non-causal; a ragged T and grouped heads
+    besides) through the forward, dq and dk/dv kernels against their
+    plain versions, bf16 at 2e-2 abs + rel. The planted fault, the plain
+    version with a causal mask, must fail the same check."""
+    g = _generator()
+
+    def rn(*s):
+        return torch.randn(*s, generator=g, device="cuda").to(torch.bfloat16)
+
+    q, k, v, do = rn(2, 93, 8, 64), rn(2, 93, 4, 64), rn(2, 93, 4, 64), \
+        rn(2, 93, 8, 64)
+    kw = dict(causal=False, scale=1.0 / math.sqrt(64))
+    if part == "fwd":
+        got = FA.flash_attention(q, k, v, **kw)
+        want = FA.flash_attention_reference(q, k, v, **kw)
+        bad = FA.flash_attention_reference(q, k, v, causal=True,
+                                           scale=kw["scale"])
+    else:
+        o, lse = FA.flash_attention_reference(q, k, v, return_lse=True, **kw)
+        pick = slice(0, 1) if part == "dq" else slice(1, 3)
+        got = FA.flash_attention_bwd(q, k, v, o, lse, do, **kw)[pick]
+        want = FA.flash_attention_bwd_reference(q, k, v, o, lse, do,
+                                                **kw)[pick]
+        o_c, lse_c = FA.flash_attention_reference(
+            q, k, v, causal=True, scale=kw["scale"], return_lse=True)
+        bad = FA.flash_attention_bwd_reference(
+            q, k, v, o_c, lse_c, do, causal=True, scale=kw["scale"])[pick]
+    torch.cuda.synchronize()
+    assert _close(got, want)
+    assert not _close(bad, want)

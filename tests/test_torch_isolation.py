@@ -1,7 +1,7 @@
-"""The port stands alone: ``paddle_tpu_torch`` and ``chip_smoke.py`` import
-neither ``jax`` nor the JAX package, and the entry points run on the GPU
-unless the caller asks for the CPU — on this host, which has no CUDA,
-they raise."""
+"""The port stands alone: ``paddle_tpu_torch``, ``chip_smoke.py`` and the
+card tests (``tests/test_torch_card.py``) import neither ``jax`` nor the
+JAX package, and the entry points run on the GPU unless the caller asks
+for the CPU — on this host, which has no CUDA, they raise."""
 
 import ast
 import subprocess
@@ -19,7 +19,7 @@ pytestmark = pytest.mark.port
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "paddle_tpu_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py"]
+    ROOT / "chip_smoke.py", ROOT / "tests" / "test_torch_card.py"]
 FORBIDDEN = ("jax", "paddle_tpu", "jaxlib")
 
 
@@ -58,6 +58,24 @@ def test_source_names_no_jax(path):
         else:
             continue
         assert not any(_forbidden(n) for n in names), (path, names)
+
+
+def test_card_tests_collect_without_jax():
+    """``tests/test_torch_card.py`` collects (and, without a GPU, skips)
+    on a host where importing ``jax`` or the JAX package fails, as on the
+    card's host: run without the repository's conftest, which imports
+    JAX."""
+    code = ("import sys\n"
+            f"for m in {FORBIDDEN!r}: sys.modules[m] = None\n"
+            "import pytest\n"
+            "sys.exit(pytest.main(['--noconftest', '-q', '-p', "
+            "'no:cacheprovider', 'tests/test_torch_card.py']))")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stdout + out.stderr
+    assert "error" not in out.stdout.lower(), out.stdout
+    want = "passed" if torch.cuda.is_available() else "skipped"
+    assert want in out.stdout, out.stdout
 
 
 def test_every_kernel_has_a_source():

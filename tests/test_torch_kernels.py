@@ -7,13 +7,15 @@ its gates accept (D=64, T=128, S=128), and against the JAX package's plain
 arm. Tolerance 2e-5 abs/rel: both sides compute in fp32, in another
 summation order. Inputs come from a numpy seed and go to both sides.
 
-The backward kernels' plain versions (flash dq/dk/dv, RMSNorm dx/dw, RoPE
-with ``sign=-1``) are held against ``jax.vjp`` of the Pallas functions,
-and the AdamW plain version against the Pallas ``adamw_update`` over
-several steps. Each ``autograd.Function`` passes ``gradcheck`` in float64.
+The backward kernels' plain versions (flash dq/dk/dv, RMSNorm dx/dw,
+LayerNorm dx/dw/db, RoPE with ``sign=-1``) are held against ``jax.vjp``
+of the Pallas functions, and the AdamW plain version against the Pallas
+``adamw_update`` over several steps. Each ``autograd.Function`` passes ``gradcheck`` in float64.
 
-The CUDA kernels themselves run only on the card: ``test_kernel_on_card``
-holds each against its plain version there and skips without a GPU.
+The CUDA kernels themselves run only on the card:
+``tests/test_torch_card.py`` (no JAX import, so it runs on the card's
+host) holds each against its plain version there and skips without a
+GPU.
 """
 
 import importlib
@@ -39,6 +41,7 @@ from paddle_tpu_torch.kernels import flash_attention as FA
 from paddle_tpu_torch.kernels import norm as N
 from paddle_tpu_torch.kernels import rope as R
 from paddle_tpu_torch.nn import functional as TF
+from test_torch_card import ADAMW_STEP, _adamw_state
 
 pytestmark = pytest.mark.port
 
@@ -84,6 +87,170 @@ def test_rms_norm_leading_axes_and_default_eps():
     want = JF.rms_norm(jnp.asarray(x), jnp.asarray(w))
     assert got.shape == (2, 3, 64)
     np.testing.assert_allclose(got, np.asarray(want), **TOL)
+
+
+# -------------------------------------------------------------- layer_norm
+
+@pytest.mark.parametrize("rows,h", [(256, 128), (16, 256), (4, 128)])
+def test_layer_norm_matches_pallas_and_plain(rows, h):
+    """y, mean and rstd against the Pallas ``_ln_fwd`` (interpret mode)
+    where its gate takes the shape, and y against the JAX plain arm
+    everywhere (GPT's decode step has 4 rows, which the gate refuses)."""
+    x, w, b = _np(rows, h, seed=h), _np(h, seed=1), _np(h, seed=2)
+    y, mean, rstd = N.layer_norm_reference(_t(x), _t(w), _t(b), 1e-5,
+                                           return_stats=True)
+    assert torch.equal(N.layer_norm(_t(x), _t(w), _t(b), 1e-5), y)
+    xj, wj, bj = (jnp.asarray(a) for a in (x, w, b))
+    if rows % 8 == 0:
+        with jax_support.force_dispatch():
+            assert jax_norm.supported(xj, wj, bj)
+            pallas = jax_norm.layer_norm(xj, wj, bj, 1e-5)
+            _, jmean, jrstd = jax_norm._ln_fwd(xj, wj, bj, 1e-5)
+        np.testing.assert_allclose(y.numpy(), np.asarray(pallas), **TOL)
+        np.testing.assert_allclose(mean.numpy(), np.asarray(jmean)[:, 0],
+                                   **TOL)
+        np.testing.assert_allclose(rstd.numpy(), np.asarray(jrstd)[:, 0],
+                                   **TOL)
+    else:
+        with jax_support.force_dispatch():
+            assert not jax_norm.supported(xj, wj, bj)
+    plain = JF.layer_norm(xj, wj, bj, 1e-5)
+    np.testing.assert_allclose(y.numpy(), np.asarray(plain), **TOL)
+
+
+def test_layer_norm_leading_axes_and_defaults():
+    """[B, T, E] input, default epsilon, and no weight or bias (ones and
+    zeros) against the JAX plain arm."""
+    x = _np(2, 3, 64)
+    got = TF.layer_norm(_t(x)).numpy()
+    want = JF.layer_norm(jnp.asarray(x))
+    assert got.shape == (2, 3, 64)
+    np.testing.assert_allclose(got, np.asarray(want), **TOL)
+
+
+@pytest.mark.parametrize("rows,h", [(256, 128), (16, 256)])
+def test_layer_norm_bwd_matches_pallas_vjp(rows, h):
+    """dx, dw and db of the plain backward (from the port's statistics)
+    and of the autograd.Function against jax.vjp of the Pallas
+    LayerNorm."""
+    x, w, b = _np(rows, h, seed=21), _np(h, seed=22), _np(h, seed=23)
+    g = _np(rows, h, seed=24)
+    with jax_support.force_dispatch():
+        want = _vjp(lambda a, c, d: jax_norm.layer_norm(a, c, d, 1e-5),
+                    (x, w, b), g)
+    _, mean, rstd = N.layer_norm_reference(_t(x), _t(w), _t(b), 1e-5,
+                                           return_stats=True)
+    got = N.layer_norm_bwd_reference(_t(x), _t(w), mean, rstd, _t(g))
+    assert got[1].dtype == got[2].dtype == torch.float32
+    leaves = [_t(a).requires_grad_() for a in (x, w, b)]
+    auto = torch.autograd.grad(N.layer_norm(*leaves, 1e-5), leaves, _t(g))
+    for name, a, c, ref in zip(("dx", "dw", "db"), got, auto, want):
+        tol = TOL if name == "dx" else dict(rtol=2e-5, atol=1e-4)
+        np.testing.assert_allclose(a.numpy(), ref, err_msg=name, **tol)
+        np.testing.assert_allclose(c.numpy(), ref, err_msg=name, **tol)
+
+
+def test_layer_norm_bwd_ragged_matches_plain_arm_vjp():
+    """Any row count and width (the CUDA kernel has no gate): gradients
+    against jax.vjp of the JAX plain arm at [3, 5, 40]."""
+    x, w, b = _np(3, 5, 40, seed=25), _np(40, seed=26), _np(40, seed=27)
+    g = _np(3, 5, 40, seed=28)
+    want = _vjp(lambda a, c, d: JF.layer_norm(a, c, d, 1e-5), (x, w, b), g)
+    leaves = [_t(a).requires_grad_() for a in (x, w, b)]
+    got = torch.autograd.grad(TF.layer_norm(*leaves, 1e-5), leaves, _t(g))
+    for a, ref in zip(got, want):
+        np.testing.assert_allclose(a.numpy(), ref, rtol=2e-5, atol=1e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_layer_norm_mismatch_tells_faults_apart(dtype):
+    """The checks the card holds B6 and B7 to pass the plain versions
+    computed in float64 and rounded, and fail the planted faults: the
+    forward without its bias, the backward's dw without x̂, db left out,
+    dx without its mean(w·g) term."""
+    gen = torch.Generator().manual_seed(29)
+    x, w, b, g = (torch.randn(*s, generator=gen).to(dtype)
+                  for s in ((300, 776), (776,), (776,), (300, 776)))
+    y, mean, rstd = N.layer_norm_reference(x, w, b, return_stats=True)
+    y64 = N.layer_norm_reference(x.double(), w.double(), b.double())
+    assert N.layer_norm_mismatch(x, w, b, y64.to(dtype), y) <= 1
+    no_bias = N.layer_norm_reference(x, w, torch.zeros_like(b))
+    assert N.layer_norm_mismatch(x, w, b, no_bias, y) > 1
+    want = N.layer_norm_bwd_reference(x, w, mean, rstd, g)
+    d64 = N.layer_norm_bwd_reference(x.double(), w.double(), mean.double(),
+                                     rstd.double(), g.double())
+    exact = (d64[0].to(dtype), d64[1].float(), d64[2].float())
+    assert N.layer_norm_bwd_mismatch(x, w, mean, rstd, g, exact, want) <= 1
+    r = rstd[:, None]
+    xhat = (x.float() - mean[:, None]) * r
+    wg = g.float() * w.float()
+    c2 = (wg * xhat).mean(-1, keepdim=True)
+    for bad in ((want[0], g.float().sum(0), want[2]),
+                (want[0], want[1], torch.zeros_like(want[2])),
+                ((r * (wg - xhat * c2)).to(dtype), want[1], want[2])):
+        assert N.layer_norm_bwd_mismatch(x, w, mean, rstd, g, bad, want) > 1
+
+
+def test_layer_norm_cpu_tensors_take_plain_version_and_do_not_count():
+    _support.reset_launches()
+    x, w, b = _t(_np(4, 64)), _t(_np(64, seed=1)), _t(_np(64, seed=2))
+    _, mean, rstd = N.layer_norm_reference(x, w, b, return_stats=True)
+    N.layer_norm(x, w, b)
+    N.layer_norm_bwd(x, w, mean, rstd, x)
+    assert all(n == 0 for n in _support.LAUNCHES.values())
+
+
+# ------------------------------------------------ gelu, dropout, masked sdpa
+
+@pytest.mark.parametrize("approximate", [True, False])
+def test_gelu_matches_jax(approximate):
+    x = _np(5, 64) * 3
+    got = TF.gelu(_t(x), approximate=approximate).numpy()
+    want = JF.gelu(jnp.asarray(x), approximate=approximate)
+    np.testing.assert_allclose(got, np.asarray(want), **TOL)
+
+
+def test_dropout_draws_from_the_generator_only():
+    """Inverted dropout: kept values scaled by 1/(1-p), the keep share
+    near 1-p, the same mask from the same generator seed, identity in
+    eval or at p=0, and a ValueError without a generator."""
+    x = torch.ones(200, 300)
+    a = TF.dropout(x, 0.25, generator=torch.Generator().manual_seed(3))
+    b = TF.dropout(x, 0.25, generator=torch.Generator().manual_seed(3))
+    assert torch.equal(a, b)
+    kept = a != 0
+    assert torch.allclose(a[kept], torch.full_like(a[kept], 1 / 0.75))
+    assert abs(kept.float().mean().item() - 0.75) < 0.01
+    assert TF.dropout(x, 0.25, training=False) is x
+    assert TF.dropout(x, 0.0) is x
+    with pytest.raises(ValueError, match="Generator"):
+        TF.dropout(x, 0.25)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_masked_attention_matches_jax_einsum_arm(causal):
+    """With a mask the port runs the JAX einsum arm in torch ops: a
+    boolean keep-mask [B, 1, 1, T] (and GQA heads) against the JAX
+    function given the same mask."""
+    q, k, v = (_np(2, 9, 4, 64), _np(2, 9, 2, 64, seed=1),
+               _np(2, 9, 2, 64, seed=2))
+    mask = np.ones((2, 1, 1, 9), bool)
+    mask[0, ..., 6:] = False
+    got = TF.scaled_dot_product_attention(_t(q), _t(k), _t(v), _t(mask),
+                                          causal=causal).numpy()
+    want = JF.scaled_dot_product_attention(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(mask),
+        causal=causal)
+    np.testing.assert_allclose(got, np.asarray(want), **TOL)
+
+
+def test_all_ones_mask_equals_the_flash_path():
+    q, k, v = (_t(_np(2, 9, 4, 64)), _t(_np(2, 9, 4, 64, seed=1)),
+               _t(_np(2, 9, 4, 64, seed=2)))
+    ones = torch.ones(2, 1, 1, 9, dtype=torch.bool)
+    np.testing.assert_allclose(
+        TF.scaled_dot_product_attention(q, k, v, ones).numpy(),
+        TF.scaled_dot_product_attention(q, k, v).numpy(), **TOL)
 
 
 # -------------------------------------------------------------------- rope
@@ -270,23 +437,6 @@ def test_adamw_reference_matches_pallas_over_steps(p_dtype):
                                   else dict(rtol=8e-3, atol=0)))
 
 
-ADAMW_STEP = dict(lr=3e-4, step=10)
-
-
-def _adamw_state(shape, p_dtype, gen, device):
-    """``((p0, m0, v0), g)``: p at Llama's init scale (0.02), g at 1e-3 in
-    p's type, and fp32 moments as ``step - 1`` earlier gradients of that
-    scale leave them, so that one step moves p by a few ulps even in
-    bf16."""
-    def rn():
-        return torch.randn(*shape, generator=gen, device=device)
-    s, gs = ADAMW_STEP["step"], 1e-3
-    p0 = (0.02 * rn()).to(p_dtype)
-    m0 = (1 - 0.9 ** (s - 1)) * gs * rn()
-    v0 = (1 - 0.999 ** (s - 1)) * (gs * rn()) ** 2
-    return (p0, m0, v0), (gs * rn()).to(p_dtype)
-
-
 @pytest.mark.parametrize("p_dtype", [torch.float32, torch.bfloat16])
 def test_adamw_mismatch_tells_wrong_steps_apart(p_dtype, monkeypatch):
     """The tolerance the card holds the AdamW kernel to
@@ -311,7 +461,7 @@ def test_adamw_mismatch_tells_wrong_steps_apart(p_dtype, monkeypatch):
 
 
 @pytest.mark.parametrize("case", ["flash_causal_gqa", "flash_full",
-                                  "rms_norm", "rope"])
+                                  "rms_norm", "layer_norm", "rope"])
 def test_autograd_function_gradcheck(case):
     """Each autograd.Function's backward (the plain one on the CPU)
     against finite differences, float64."""
@@ -329,6 +479,10 @@ def test_autograd_function_gradcheck(case):
     elif case == "rms_norm":
         ok = torch.autograd.gradcheck(lambda a, b: N.rms_norm(a, b, 1e-5),
                                       (rn(3, 4, 16), rn(16)))
+    elif case == "layer_norm":
+        ok = torch.autograd.gradcheck(
+            lambda a, b, c: N.layer_norm(a, b, c, 1e-5),
+            (rn(3, 4, 16), rn(16), rn(16)))
     else:
         cos, sin = (torch.rand(5, 4, generator=g, dtype=torch.float64)
                     for _ in range(2))
@@ -434,109 +588,3 @@ def test_build_is_content_addressed():
     b = _support._target("rope")
     assert a.parent == _support.BUILD_DIR and a.suffix == ".so"
     assert a.name.startswith("rms_norm-") and a != b
-
-
-HEAD_TOL = {"linear_xent_fwd": (1e-3, 1e-4, False),
-            "linear_xent_dh": (1e-3, 2.0 ** -7, True),
-            "linear_xent_dw": (1e-3, 2.0 ** -7, True)}
-
-
-def _head_faults(plain, h, w, lab, extra):
-    """The plain head with one term taken out: no label logit (forward);
-    no one-hot term, and no softmax term (lse at +inf), for dH and dW."""
-    no_labels = torch.full_like(lab, -100)
-    if not extra:
-        return [plain(h, w, no_labels)]
-    lse, g = extra
-    return [plain(h, w, no_labels, lse, g),
-            plain(h, w, lab, torch.full_like(lse, float("inf")), g)]
-
-
-@pytest.mark.parametrize("name", _support.KERNELS)
-def test_kernel_on_card(name):
-    """Each CUDA kernel against its plain version on the card, bf16.
-    Tolerance 2e-2 abs + rel: bf16 output rounding (2^-8 relative) plus
-    another fp32 summation order; AdamW, elementwise fp32, and the fused
-    head are held tighter (``update_mismatch``, ``linear_xent.mismatch``),
-    and planted faults must fail their checks."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device (runs on the H100; the CPU run "
-                    "covers the plain versions)")
-    g = torch.Generator(device="cuda").manual_seed(0)
-
-    def rn(*s):
-        return torch.randn(*s, generator=g, device="cuda").to(torch.bfloat16)
-
-    if name == "rms_norm":
-        x, w = rn(5, 4096), rn(4096)
-        got, want = N.rms_norm(x, w, 1e-5), N.rms_norm_reference(x, w, 1e-5)
-    elif name == "rope":
-        x = rn(2, 3, 8, 128)
-        cos = torch.rand(3, 64, generator=g, device="cuda")
-        sin = torch.rand(3, 64, generator=g, device="cuda")
-        got = R.apply_rotary(x, cos, sin)
-        want = R.apply_rotary_reference(x, cos, sin)
-    elif name == "rms_norm_bwd":
-        x, w, gr = rn(700, 4096), rn(4096), rn(700, 4096)
-        _, rstd = N.rms_norm_reference(x, w, 1e-5, return_rstd=True)
-        got = N.rms_norm_bwd(x, w, rstd, gr)
-        want = N.rms_norm_bwd_reference(x, w, rstd, gr)
-    elif name == "flash_attention":
-        q, k, v = rn(2, 77, 8, 128), rn(2, 77, 2, 128), rn(2, 77, 2, 128)
-        got = FA.flash_attention(q, k, v, causal=True)
-        want = FA.flash_attention_reference(q, k, v, causal=True)
-    elif name.startswith("flash_attention_bwd"):
-        q, k, v = rn(2, 77, 8, 128), rn(2, 77, 2, 128), rn(2, 77, 2, 128)
-        do = rn(2, 77, 8, 128)
-        o, lse = FA.flash_attention(q, k, v, causal=True, return_lse=True)
-        got = FA.flash_attention_bwd(q, k, v, o, lse, do)
-        want = FA.flash_attention_bwd_reference(q, k, v, o, lse, do)
-        pick = slice(0, 1) if name.endswith("_dq") else slice(1, 3)
-        got, want = got[pick], want[pick]
-    elif name == "adamw":
-        # each output at its own scale (update_mismatch), bf16 and fp32 p;
-        # a kernel that writes nothing must fail the same check
-        for p_dtype in (torch.bfloat16, torch.float32):
-            before, gr = _adamw_state((3, 1000), p_dtype, g, "cuda")
-            got = A.adamw_update(*(t.clone() for t in before), gr,
-                                 **ADAMW_STEP)
-            want = A.adamw_update_reference(*(t.clone() for t in before), gr,
-                                            **ADAMW_STEP)
-            assert A.update_mismatch(before, gr, got, want, **ADAMW_STEP) <= 1
-            assert A.update_mismatch(before, gr, before, want,
-                                     **ADAMW_STEP) > 1
-        return
-    elif name.startswith("linear_xent"):
-        # ragged: N, E and V off every tile, rows at -100, V - 1 picked;
-        # held as chip_smoke holds them (``LX.mismatch``), and planted
-        # faults must fail the same check
-        from paddle_tpu_torch.kernels import linear_xent as LX
-        h, w = rn(300, 136), (rn(136, 1003).float() * 0.05).bfloat16()
-        lab = torch.randint(0, 1003, (300,), generator=g, device="cuda")
-        lab[::7], lab[1] = -100, 1002
-        lse, _ = LX.linear_xent_fwd_reference(h, w, lab)
-        gr = torch.rand(300, generator=g, device="cuda")
-        kern, plain, extra = {
-            "linear_xent_fwd": (LX.linear_xent_fwd,
-                                LX.linear_xent_fwd_reference, ()),
-            "linear_xent_dh": (LX.linear_xent_dh,
-                               LX.linear_xent_dh_reference, (lse, gr)),
-            "linear_xent_dw": (LX.linear_xent_dw,
-                               LX.linear_xent_dw_reference, (lse, gr))}[name]
-        want = plain(h, w, lab, *extra)
-        assert LX.mismatch(kern(h, w, lab, *extra), want,
-                           *HEAD_TOL[name]) <= 1
-        for bad in _head_faults(plain, h, w, lab, extra):
-            assert LX.mismatch(bad, want, *HEAD_TOL[name]) > 1
-        return
-    else:
-        q, kn, vn = rn(2, 1, 8, 128), rn(2, 2, 1, 128), rn(2, 2, 1, 128)
-        cache = (rn(3, 2, 2, 90, 128), rn(3, 2, 2, 90, 128))
-        got = DA.decode_attention(q, kn, vn, cache, 2, 41)
-        want = DA.decode_attention_reference(q, kn, vn, cache, 2, 41)
-    torch.cuda.synchronize()
-    if isinstance(got, torch.Tensor):
-        got, want = (got,), (want,)
-    for a, b in zip(got, want):
-        torch.testing.assert_close(a.float(), b.float(), rtol=2e-2,
-                                   atol=2e-2)
