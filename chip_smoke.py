@@ -161,6 +161,9 @@ REPLACES = {
     "linear_xent_fwd": "paddle_tpu/ops/pallas/linear_xent.py:187",
     "linear_xent_dh": "paddle_tpu/ops/pallas/linear_xent.py:221",
     "linear_xent_dw": "paddle_tpu/ops/pallas/linear_xent.py:247",
+    "selective_scan": "paddle_tpu/ops/pallas/selective_scan.py:112",
+    "selective_scan_bwd": "paddle_tpu/ops/pallas/selective_scan.py:210",
+    "decode_attention_int8": "paddle_tpu/ops/pallas/decode_attention.py:211",
 }
 # the path whose launches the JSON line reports for each kernel: decode
 # attention the serving path's, the fused head the bench path's,
@@ -170,6 +173,7 @@ TRAIN_KERNELS = ("rms_norm", "rms_norm_bwd", "rope", "flash_attention",
                  "adamw")
 HEAD_KERNELS = ("linear_xent_fwd", "linear_xent_dh", "linear_xent_dw")
 LN_KERNELS = ("layer_norm", "layer_norm_bwd")
+SCAN_KERNELS = ("selective_scan", "selective_scan_bwd")
 # Fused head against its plain versions. Both take the same fp32 logits
 # up to summation order, so the forward's fp32 lse and label logit agree
 # to ~1e-5: held at 1e-3 + 1e-4·|ref|. dH and dW round dlogits and the
@@ -234,7 +238,40 @@ ERNIE_SANITY = GPT_TRAIN_SANITY
 # (ERNIE's dv) and 8.5e-3 (decode o). Each limit sits at least twice away
 # from both.
 PROBE_LIMITS = {"flash o": 3e-4, "flash dq": 1e-3, "flash dk": 1e-3,
-                "flash dv": 1e-3, "decode o": 3e-4}
+                "flash dv": 1e-3, "decode o": 3e-4, "decode int8 o": 3e-4}
+# Phases 9-10 (Mamba-0.2B, bench_extra.py:78-85 and :355-364: V=50304,
+# E=1024, 24 layers, bf16; Ei=2048, N=16). The whole run's differences
+# from the plain run are bf16 rounding flips in the GEMMs and norms. On
+# the H100 (NVIDIA H100 80GB HBM3, 700 W) the kernel run read: logits max
+# 0.0879, mean 0.00621, cosine 0.99956; training |Δloss| 1.30e-4,
+# grad-norm 3.44e-5 relative, gradients 0.0269 relative L2 and 0.99924
+# least cosine, parameters 4.0e-5 max and 0.70% different. The
+# bf16-state control (the plain scan with its state rounded to bf16
+# after every step) read 0.133, 0.0172, 0.99908; 3.49e-4, 8.54e-5,
+# 0.0507, 0.99708, 4.2e-5 and 0.80%. Where the control reads at least
+# 1.6× the kernels (all but the logits' max and the parameters), the
+# limit is the geometric mean of the two readings (1.37-1.96× the
+# kernels'; the training control must fail these); elsewhere it is twice
+# the kernels' reading. The scan kernels are held where they show best, by
+# ``scan_probe`` on the first layer's own scan inputs and output
+# gradient: the kernels and plain versions run the same fp32 recurrence
+# (another exp, other summation orders) and read 1.7e-8-8.2e-7 relative
+# L2, the control 3.2e-4-3.1e-3; the limit lies between.
+MAMBA_SERVE_B, MAMBA_B, MAMBA_T = 8, 8, 2048
+MAMBA_LOGIT_LIMITS = (0.176, 0.0104, 0.99937)
+MAMBA_TRAIN_LIMITS = {"loss_abs": ("<=", 2.1e-4),
+                      "grad_norm_rel": ("<=", 5.4e-5),
+                      "grad_rel_l2": ("<=", 0.037),
+                      "grad_min_cosine": (">=", 0.9985)}
+MAMBA_TRAIN_SANITY = {"param_max_abs": ("<=", 8e-5),
+                      "param_diff_share": ("<=", 0.014)}
+SCAN_PROBE_LIMIT = 1e-4
+# Phase 11 (Llama-2-7B with the int8 KV cache): the int8 decode kernel and
+# its plain version round the same probabilities to bf16 (csrc/
+# decode_attention.cu), so the whole run is held to phase 3's limits as a
+# bound on the kernel, and the probe ("decode int8 o") against the JAX
+# einsum arm's numerics (k and v dequantized to bf16) tells them apart.
+INT8_LOGIT_LIMITS = LOGIT_LIMITS
 
 
 def log(*a):
@@ -359,6 +396,21 @@ def einsum_arm_decode(q, k_new, v_new, cache, layer, index, *, scale=None):
     return out.reshape(Bq, Hq, T, D).permute(0, 2, 1, 3)
 
 
+def einsum_arm_decode_int8(q, k_new, v_new, cache, layer, index, *,
+                           scale=None):
+    """The JAX einsum decode arm on the int8 cache (_common.py:121-137): k
+    and v dequantized to q's type (the scales rounded to it too), then the
+    float arm's bf16 numerics."""
+    k_q, v_q, k_s, v_s = cache
+    dt = q.dtype
+    kc = k_q[layer, :, :, :index].to(dt) * k_s[layer, :, :, :index].to(
+        dt)[..., None]
+    vc = v_q[layer, :, :, :index].to(dt) * v_s[layer, :, :, :index].to(
+        dt)[..., None]
+    return einsum_arm_decode(q, k_new, v_new, (kc[None], vc[None]), 0, index,
+                             scale=scale)
+
+
 def control_attention_bwd(q, k, v, o, lse, do, *, causal=True, scale=None):
     """Autograd of the bf16 einsum arm, recomputed from q, k, v."""
     with torch.enable_grad():
@@ -370,21 +422,107 @@ def control_attention_bwd(q, k, v, o, lse, do, *, causal=True, scale=None):
 @contextlib.contextmanager
 def bf16_attention(decode: bool = False):
     """The control: the plain versions of attention (and, with ``decode``,
-    of decode attention) replaced by the JAX einsum arms' bf16
-    numerics."""
+    of decode attention, float and int8 caches) replaced by the JAX einsum
+    arms' bf16 numerics."""
     from paddle_tpu_torch.kernels import decode_attention as DA
     from paddle_tpu_torch.kernels import flash_attention as FA
     saved = (FA.flash_attention_reference, FA.flash_attention_bwd_reference,
-             DA.decode_attention_reference)
+             DA.decode_attention_reference,
+             DA.decode_attention_int8_reference)
     FA.flash_attention_reference = einsum_arm_attention
     FA.flash_attention_bwd_reference = control_attention_bwd
     if decode:
         DA.decode_attention_reference = einsum_arm_decode
+        DA.decode_attention_int8_reference = einsum_arm_decode_int8
     try:
         yield
     finally:
         (FA.flash_attention_reference, FA.flash_attention_bwd_reference,
-         DA.decode_attention_reference) = saved
+         DA.decode_attention_reference,
+         DA.decode_attention_int8_reference) = saved
+
+
+def _bf16_steps(h, dA, dBu):
+    """The states after each step of a chunk from ``h`` before it, each
+    rounded to bf16: [B, k, Ei, N]."""
+    hs = []
+    for i in range(dA.shape[1]):
+        h = (dA[:, i] * h + dBu[:, i]).bfloat16().float()
+        hs.append(h)
+    return torch.stack(hs, 1)
+
+
+def bf16_state_scan(u, delta, A, B, C, D, initial_state=None):
+    """The scan control's forward: ``SS.selective_scan_reference`` (the
+    same chunks and operations) with the state rounded to bf16 after
+    every step. Returns ``(y, h_T)``."""
+    from paddle_tpu_torch.kernels import selective_scan as SS
+    nb, T, Ei = u.shape
+    h = (torch.zeros(nb, Ei, A.shape[1], device=u.device)
+         if initial_state is None else initial_state)
+    ys = []
+    for t0 in range(0, T, SS.PLAIN_CHUNK):
+        sl = slice(t0, t0 + SS.PLAIN_CHUNK)
+        hs = _bf16_steps(h, *SS._chunk_coeffs(u, delta, A, B, sl))
+        h = hs[:, -1]
+        ys.append(torch.einsum("btin,btn->bti", hs, C[:, sl]))
+    return torch.cat(ys, 1) + u * D, h
+
+
+def bf16_state_scan_bwd(u, delta, A, B, C, dy, initial_state=None,
+                        dh_last=None):
+    """The scan control's backward: the reverse adjoint of
+    ``SS.selective_scan_bwd_reference`` (the same chunks and operations)
+    with the recomputed state and the adjoint g rounded to bf16 after
+    every step. Returns ``(du, dΔ, dA_part, dB, dC, dh0)``."""
+    from paddle_tpu_torch.kernels import selective_scan as SS
+    nb, T, Ei = u.shape
+    k = SS.PLAIN_CHUNK
+    zero = torch.zeros(nb, Ei, A.shape[1], device=u.device)
+    h = zero if initial_state is None else initial_state
+    m = zero if dh_last is None else dh_last
+    bounds = []
+    for t0 in range(0, T, k):
+        bounds.append((t0, h))
+        h = _bf16_steps(h, *SS._chunk_coeffs(u, delta, A, B,
+                                             slice(t0, t0 + k)))[:, -1]
+    du, ddt = torch.empty_like(u), torch.empty_like(u)
+    dB, dC = torch.empty_like(B), torch.empty_like(C)
+    dA_part = zero.clone()
+    for t0, hb in reversed(bounds):
+        sl = slice(t0, t0 + k)
+        dA, dBu = SS._chunk_coeffs(u, delta, A, B, sl)
+        hpost = _bf16_steps(hb, dA, dBu)
+        hprev = torch.cat([hb[:, None], hpost[:, :-1]], 1)
+        dl, uu, dyc, Bc, Cc = (x[:, sl] for x in (delta, u, dy, B, C))
+        gs = [None] * dl.shape[1]
+        for i in reversed(range(dl.shape[1])):
+            gs[i] = (Cc[:, i, None, :] * dyc[:, i, :, None]
+                     + m).bfloat16().float()
+            m = dA[:, i] * gs[i]
+        gs = torch.stack(gs, 1)
+        s1 = (gs * Bc[:, :, None, :]).sum(-1)
+        du[:, sl] = dl * s1
+        gdh = gs * dA * hprev
+        ddt[:, sl] = (gdh * A).sum(-1) + uu * s1
+        dB[:, sl] = (gs * (dl * uu)[..., None]).sum(2)
+        dC[:, sl] = (hpost * dyc[..., None]).sum(2)
+        dA_part += (gdh * dl[..., None]).sum(1)
+    return du, ddt, dA_part, dB, dC, m
+
+
+@contextlib.contextmanager
+def bf16_state():
+    """The scan's whole-run control: the plain versions replaced by
+    ``bf16_state_scan`` and ``bf16_state_scan_bwd``."""
+    from paddle_tpu_torch.kernels import selective_scan as SS
+    saved = SS.selective_scan_reference, SS.selective_scan_bwd_reference
+    SS.selective_scan_reference = bf16_state_scan
+    SS.selective_scan_bwd_reference = bf16_state_scan_bwd
+    try:
+        yield
+    finally:
+        SS.selective_scan_reference, SS.selective_scan_bwd_reference = saved
 
 
 def compare_logits(got, want):
@@ -497,13 +635,16 @@ def attention_probe(key, seen, run):
     if "decode" in seen:
         q, kn, vn, cache, layer, index, scale = seen["decode"]
         scale = scale or 1.0 / math.sqrt(q.shape[-1])
-        want = DA.decode_attention_reference(q, kn, vn, cache, layer, index,
-                                             scale=scale)
-        readings["decode o"] = (
+        int8 = len(cache) == 4
+        plain, ctrl_fn = ((DA.decode_attention_int8_reference,
+                           einsum_arm_decode_int8) if int8 else
+                          (DA.decode_attention_reference, einsum_arm_decode))
+        want = plain(q, kn, vn, cache, layer, index, scale=scale)
+        readings["decode int8 o" if int8 else "decode o"] = (
             _rel_l2(DA.decode_attention(q, kn, vn, cache, layer, index,
                                         scale=scale), want),
-            _rel_l2(einsum_arm_decode(q, kn, vn, cache, layer, index,
-                                      scale=scale), want))
+            _rel_l2(ctrl_fn(q, kn, vn, cache, layer, index, scale=scale),
+                    want))
     torch.cuda.synchronize()
     out = {name: {"kernel": kr, "control": cr, "limit": PROBE_LIMITS[name]}
            for name, (kr, cr) in readings.items()}
@@ -520,8 +661,98 @@ def attention_probe(key, seen, run):
     return out
 
 
+def attention_serve_probe(key, model, prompt, seq, cache_dtype, run):
+    """``attention_probe`` on the prefill's and the first decode step's own
+    attention inputs."""
+    seen = {}
+    with recording_attention(seen):
+        cache = model.init_cache(prompt.shape[0], T0 + NEW, dtype=cache_dtype)
+        _, cache = model.forward_with_cache(prompt, cache, 0)
+        model.forward_with_cache(seq[:, T0:T0 + 1], cache, T0)
+    return attention_probe(key, seen, run)
+
+
+@contextlib.contextmanager
+def recording_scan(seen):
+    """Record into ``seen`` the first selective scan's inputs (``args``:
+    u, delta, A, B, C, D; ``h0``) and the gradient that reaches its output
+    (``dy``), on the path's own activations."""
+    from paddle_tpu_torch.kernels import selective_scan as SS
+    scan = SS.selective_scan
+
+    def rec(u, delta, A, B, C, D, *, initial_state=None, return_state=False):
+        out = scan(u, delta, A, B, C, D, initial_state=initial_state,
+                   return_state=return_state)
+        if "args" not in seen:
+            seen["args"] = tuple(t.detach() for t in (u, delta, A, B, C, D))
+            seen["h0"] = (None if initial_state is None
+                          else initial_state.detach())
+            y = out[0] if return_state else out
+            if y.requires_grad:
+                y.register_hook(lambda g: seen.setdefault("dy", g.detach()))
+        return out
+
+    SS.selective_scan = rec
+    try:
+        yield seen
+    finally:
+        SS.selective_scan = scan
+
+
+def scan_probe(key, seen, run, backward=True):
+    """The scan kernels on the inputs ``recording_scan`` saw (the first
+    layer's u, Δ, A, B, C, D and state; with ``backward``, its output
+    gradient ``dy`` too, which must have been seen), each output's
+    relative L2 error against the plain version's, beside the bf16-state
+    control's. Every kernel reading must stay within SCAN_PROBE_LIMIT and
+    every control reading must exceed it. Launches made here are not
+    counted: the path's counts were read before."""
+    from paddle_tpu_torch.kernels import selective_scan as SS
+    args, h0 = seen["args"], seen["h0"]
+    readings = {}
+    got = SS.selective_scan(*args, initial_state=h0, return_state=True)
+    want = SS.selective_scan_reference(*args, h0)
+    ctrl = bf16_state_scan(*args, h0)
+    for name, a, b, c in zip(("y", "h_T"), got, want, ctrl):
+        readings[f"scan {name}"] = (_rel_l2(a, b), _rel_l2(c, b))
+    if backward and "dy" not in seen:
+        run.failures.append(f"{key} probe: the first layer's scan saw no "
+                            "output gradient; the backward went unprobed")
+    elif backward:
+        dy = seen["dy"].float().contiguous()
+        hsave = SS._fwd_kernel(*args, h0, save=True)[1]
+        got = SS._bwd_kernel(*args[:5], hsave, dy)
+        want = SS.selective_scan_bwd_reference(*args[:5], dy, h0)
+        ctrl = bf16_state_scan_bwd(*args[:5], dy, h0)
+        for name, a, b, c in zip(("du", "ddelta", "dA", "dB", "dC"), got,
+                                 want, ctrl):
+            readings[f"scan {name}"] = (_rel_l2(a, b), _rel_l2(c, b))
+    torch.cuda.synchronize()
+    out = {name: {"kernel": kr, "control": cr, "limit": SCAN_PROBE_LIMIT}
+           for name, (kr, cr) in readings.items()}
+    log(f"{key} scan probe (relative L2 against the plain version; kernel, "
+        f"bf16-state control, limit): {out}")
+    for name, r in out.items():
+        if not r["kernel"] <= r["limit"]:
+            run.failures.append(f"{key} probe {name}: kernel {r['kernel']} "
+                                f"> {r['limit']}")
+        if r["control"] <= r["limit"]:
+            run.failures.append(f"{key} probe {name}: the bf16-state control "
+                                f"{r['control']} passes {r['limit']}")
+    return out
+
+
+def scan_serve_probe(key, model, prompt, seq, cache_dtype, run):
+    """``scan_probe`` on the prefill's first scan."""
+    seen = {}
+    with recording_scan(seen):
+        model.forward_with_cache(prompt, model.init_cache(prompt.shape[0]),
+                                 0)
+    return scan_probe(key, seen, run, backward=False)
+
+
 def serve_phase(key, title, model, prompt, expected, limits, run, *,
-                probe=False):
+                probe=None, control=None, cache_dtype=None, state_bytes=0):
     """``generate`` of NEW tokens after ``prompt`` [B, T0] on ``model``
     with the launch counters at 0 just before: every counter must end at
     ``expected`` (0 where not named) and the output must be well formed.
@@ -530,20 +761,27 @@ def serve_phase(key, title, model, prompt, expected, limits, run, *,
     teacher-forced logits (prefill and TEACHER_STEPS decode steps) of the
     kernels against the plain versions on the card, within ``limits``
     (max abs, mean abs, least cosine) that the bf16-attention control
-    must fail. With ``probe`` the limits bound the kernel run only, and
-    the control must fail ``attention_probe`` on the prefill's and a
-    decode step's own attention inputs instead. Returns the launch
-    counts."""
+    must fail. With ``probe`` (``probe(key, model, prompt, seq,
+    cache_dtype, run)``: ``attention_serve_probe``, ``scan_serve_probe``)
+    the limits bound the kernel run only, and the control must fail the
+    probe on the path's own inputs instead. ``control`` (a context
+    manager factory) defaults to the bf16-attention control;
+    ``cache_dtype`` goes to ``generate`` and ``init_cache``;
+    ``state_bytes`` (a decode step's state read and written besides the
+    weights) joins the decode bound. Returns the launch counts and the
+    generated tokens."""
     from paddle_tpu_torch.kernels import _support
     failures, report = run.failures, run.report
+    B = prompt.shape[0]
     V = model.config.vocab_size
-    model.generate(prompt[:, :16], 2)          # warm-up (cuBLAS, allocator)
+    control_ctx = control or (lambda: bf16_attention(decode=True))
+    model.generate(prompt[:, :16], 2, cache_dtype=cache_dtype)  # warm-up
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
 
     _support.reset_launches()
     t = time.perf_counter()
-    seq = model.generate(prompt, NEW)
+    seq = model.generate(prompt, NEW, cache_dtype=cache_dtype)
     torch.cuda.synchronize()
     gen_s = time.perf_counter() - t
     launches = dict(_support.LAUNCHES)
@@ -558,7 +796,7 @@ def serve_phase(key, title, model, prompt, expected, limits, run, *,
                         f"{tuple(seq.shape)}")
 
     # step times, on the warmed model
-    cache = model.init_cache(B, T0 + NEW)
+    cache = model.init_cache(B, T0 + NEW, dtype=cache_dtype)
     torch.cuda.synchronize()
     t = time.perf_counter()
     model.forward_with_cache(prompt, cache, 0)
@@ -583,14 +821,16 @@ def serve_phase(key, title, model, prompt, expected, limits, run, *,
         "generate_s": gen_s, "tokens_per_s": B * NEW / gen_s,
         "prefill_ms": prefill_ms, "decode_ms_per_step": decode_ms,
         "decode_graph_ms_per_step": decode_graph_ms,
-        "decode_bound_ms": weight_bytes / HBM_BYTES_PER_S * 1e3,
+        "decode_bound_ms": (weight_bytes + state_bytes) / HBM_BYTES_PER_S
+        * 1e3, "cache_dtype": str(cache_dtype),
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
         "launches": launches, "card": run.card}
     log(f"{key} ({title}) on {run.card}: generate {gen_s * 1e3:.1f} ms "
         f"({B * NEW / gen_s:.1f} tokens/s), prefill {prefill_ms:.2f} ms, "
         f"decode {decode_ms:.3f} ms/step on the host's clock, "
         f"{decode_graph_ms:.3f} ms/step replayed as a CUDA graph "
-        f"(weights-read bound {out['decode_bound_ms']:.3f} ms)")
+        f"(weights{' and state' if state_bytes else ''} bound "
+        f"{out['decode_bound_ms']:.3f} ms)")
 
     # where a decode step's time goes: torch.profiler over 4 steps
     def four_steps():
@@ -606,7 +846,7 @@ def serve_phase(key, title, model, prompt, expected, limits, run, *,
         ctx = (_support.force_reference() if reference
                else contextlib.nullcontext())
         with ctx:
-            cache = model.init_cache(B, T0 + NEW)
+            cache = model.init_cache(B, T0 + NEW, dtype=cache_dtype)
             logits, cache = model.forward_with_cache(prompt, cache, 0)
             outs = [logits.float()]
             for i in range(TEACHER_STEPS):
@@ -617,7 +857,7 @@ def serve_phase(key, title, model, prompt, expected, limits, run, *,
 
     want = teacher(True)
     got = teacher(False)
-    with bf16_attention(decode=True):
+    with control_ctx():
         control = compare_logits(teacher(True), want)
     res = compare_logits(got, want)
     out["logits"] = {"kernels_vs_plain": res, "control": control,
@@ -625,24 +865,18 @@ def serve_phase(key, title, model, prompt, expected, limits, run, *,
                                          "min_cosine"), limits)),
                      "ref_max_abs": want.abs().max().item(),
                      "shape": list(got.shape)}
-    log(f"{key} logits kernels vs plain: {res}; control (plain vs plain "
-        f"with the JAX einsum arms' bf16 attention): {control}; limits "
+    log(f"{key} logits kernels vs plain: {res}; control (the plain run "
+        f"in lower precision): {control}; limits "
         f"max_abs <= {limits[0]}, mean_abs <= {limits[1]}, cosine >= "
         f"{limits[2]}")
     if not (torch.isfinite(want).all() and logits_within(res, limits)):
         failures.append(f"{key}: logits disagree: {out['logits']}")
-    if probe:
-        seen = {}
-        with recording_attention(seen):
-            cache = model.init_cache(B, T0 + NEW)
-            _, cache = model.forward_with_cache(prompt, cache, 0)
-            model.forward_with_cache(seq[:, T0:T0 + 1], cache, T0)
-        out["attention_probe"] = attention_probe(key, seen, run)
-        del seen, cache
+    if probe is not None:
+        out["probe"] = probe(key, model, prompt, seq, cache_dtype, run)
     elif logits_within(control, limits):
         failures.append(f"{key}: logits check cannot tell the kernels from "
                         f"bf16 attention: the control passes it {control}")
-    return launches
+    return launches, seq
 
 
 def train(make_model, batch, kernels: bool):
@@ -702,17 +936,22 @@ def train(make_model, batch, kernels: bool):
 
 def train_phase(key, title, make_model, batch, per_step, limits, run, *,
                 expected_loss, n_params, hidden, n_layers, extra_controls=(),
-                sanity=None, probe=False):
+                sanity=None, probe=None,
+                control=("attention control", bf16_attention)):
     """TRAIN_STEPS timed steps with the kernels (counters at 0 just
     before; every one must end at TRAIN_STEPS × ``per_step``, 0 where not
-    named), the same steps under ``force_reference()`` and under the
-    bf16-attention control. The kernel run must meet ``limits`` and
+    named), the same steps under ``force_reference()`` and under
+    ``control`` (name, context manager factory; default the
+    bf16-attention control). The kernel run must meet ``limits`` and
     ``sanity`` (default TRAIN_SANITY) against the plain run, and the
     control must fail every one of ``limits``; ``extra_controls`` (name →
-    context manager factory) are recorded only. With ``probe``, one more
-    kernel-run step records the first layer's attention inputs and output
-    gradient, where the control must fail ``attention_probe``. Losses must lie near ``expected_loss`` (random
-    weights). Reports step ms, tokens/s, peak GB, bench.py's FLOPs share
+    context manager factory) are recorded only. With ``probe`` (a
+    recorder and its probe: ``recording_attention`` and
+    ``attention_probe``, or ``recording_scan`` and ``scan_probe``), one
+    more kernel-run step records the first layer's inputs and output
+    gradient, where the control must fail the probe. Losses must lie
+    near ``expected_loss`` (random weights). Reports step ms, tokens/s,
+    peak GB, bench.py's FLOPs share
     (``n_params`` None: the model's parameter count) and a profiled step.
     Returns the launch counts."""
     failures = run.failures
@@ -741,7 +980,7 @@ def train_phase(key, title, make_model, batch, per_step, limits, run, *,
     del kern["grads"], kern["params"]
     runs = {"kernels": kern, "plain": ref_run}
     readings = {}
-    controls = {"attention control": bf16_attention, **dict(extra_controls)}
+    controls = {control[0]: control[1], **dict(extra_controls)}
     for name, patch in controls.items():
         with patch():
             ctrl = train(make_model, batch, False)
@@ -792,24 +1031,82 @@ def train_phase(key, title, make_model, batch, per_step, limits, run, *,
     if len(passed(res, both)) != len(both):
         failures.append(f"{key} run disagrees with the plain run: {res}, "
                         f"limits {both}")
-    if passed(readings["attention control"], limits):
-        failures.append(f"{key} check cannot tell the kernels from bf16 "
-                        f"attention: the control passes "
-                        f"{passed(readings['attention control'], limits)} "
-                        f"({readings['attention control']})")
-    if probe:
+    if passed(readings[control[0]], limits):
+        failures.append(f"{key} check cannot tell the kernels from the "
+                        f"{control[0]}: it passes "
+                        f"{passed(readings[control[0]], limits)} "
+                        f"({readings[control[0]]})")
+    if probe is not None:
+        recorder, prober = probe
         seen = {}
-        with recording_attention(seen):
+        with recorder(seen):
             model = make_model()
             rest = {k: v for k, v in batch.items()
                     if k not in ("input_ids", "labels")}
             model.loss(ids, batch["labels"], **rest,
                        generator=torch.Generator(device=ids.device)
                        .manual_seed(SEED)).backward()
-        run.report[key]["attention_probe"] = attention_probe(key, seen, run)
+        run.report[key]["probe"] = prober(key, seen, run)
         del seen, model
         torch.cuda.empty_cache()
     return launches
+
+
+def scan_faults(args, dy, dh_last):
+    """The plain selective scan with one piece taken out: forward (y, h_T)
+    with the carried state reset at each of the kernel's save intervals,
+    and without the D·u term; backward (du, dΔ, dA_part, dB, dC, dh0)
+    without the message across intervals, and with dB and dC from the
+    first channel block only."""
+    from paddle_tpu_torch.kernels import selective_scan as SS
+    u, delta, A, B_, C, D, h0 = args
+    T = u.shape[1]
+    k = SS.save_interval(A.shape[1])
+    chunks = [slice(t, min(t + k, T)) for t in range(0, T, k)]
+
+    def part(x, sl):
+        return x[:, sl]
+    ys, h = [], h0
+    for i, sl in enumerate(chunks):
+        y, h = SS.selective_scan_reference(
+            part(u, sl), part(delta, sl), A, part(B_, sl), part(C, sl), D,
+            h0 if i == 0 else None)
+        ys.append(y)
+    fwd = {"state reset per chunk": (torch.cat(ys, 1), h),
+           "D·u dropped": SS.selective_scan_reference(u, delta, A, B_, C,
+                                                      0 * D, h0)}
+    want = SS.selective_scan_bwd_reference(u, delta, A, B_, C, dy, h0,
+                                           dh_last)
+    parts, h = [], h0
+    for i, sl in enumerate(chunks):
+        parts.append(SS.selective_scan_bwd_reference(
+            part(u, sl), part(delta, sl), A, part(B_, sl), part(C, sl),
+            part(dy, sl), h, dh_last if i == len(chunks) - 1 else None))
+        _, h = SS.selective_scan_reference(part(u, sl), part(delta, sl), A,
+                                           part(B_, sl), part(C, sl), D, h)
+    cut = SS.CHANNEL_BLOCK
+    one = SS.selective_scan_bwd_reference(
+        u[..., :cut], delta[..., :cut], A[:cut], B_, C, dy[..., :cut],
+        None if h0 is None else h0[:, :cut],
+        None if dh_last is None else dh_last[:, :cut])
+    bwd = {"message not carried": (
+               torch.cat([q[0] for q in parts], 1),
+               torch.cat([q[1] for q in parts], 1), sum(q[2] for q in parts),
+               torch.cat([q[3] for q in parts], 1),
+               torch.cat([q[4] for q in parts], 1), parts[0][5]),
+           "dB/dC of one channel block": (*want[:3], one[3], one[4],
+                                          want[5])}
+    return fwd, bwd
+
+
+def int8_faults(cache):
+    """The int8 cache read wrongly: the v scale not applied; each scale
+    taken per head (its largest over positions), not per position."""
+    kq, vq, ks, vs = cache
+    per_head = [s.amax(-1, keepdim=True).expand_as(s).contiguous()
+                for s in (ks, vs)]
+    return {"v scale not applied": (kq, vq, ks, torch.ones_like(vs)),
+            "scale per head": (kq, vq, *per_head)}
 
 
 def main() -> int:
@@ -830,9 +1127,12 @@ def main() -> int:
     from paddle_tpu_torch.kernels import linear_xent as LX
     from paddle_tpu_torch.kernels import norm as N
     from paddle_tpu_torch.kernels import rope as R
+    from paddle_tpu_torch.kernels import selective_scan as SS
     from paddle_tpu_torch.models import (ErnieConfig, ErnieForPretraining,
                                          GPTConfig, GPTForCausalLM,
-                                         LlamaConfig, LlamaForCausalLM)
+                                         LlamaConfig, LlamaForCausalLM,
+                                         MambaConfig, MambaForCausalLM)
+    from paddle_tpu_torch.models._common import _quant_chunk
     from paddle_tpu_torch.nn.functional import rotary_embedding
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1392,6 +1692,142 @@ def main() -> int:
     del q, k, v, do, o, lse, delta, qt, kt, vt, ot, dot, lib_bwd, faults
     del o_c, lse_c, bad, want
     torch.cuda.empty_cache()
+
+    # the selective scan (B17, B18), fp32: Mamba-0.2B's training shape
+    # (B=8, T=2048, Ei=2048, N=16; timed, the forward saving its states as
+    # the training step runs it), its prefill shape with a carried state,
+    # and a ragged one (T off every tile, Ei over seven channel blocks).
+    # Held by ``SS.mismatch`` (1e-4 of each output's largest value plus
+    # 1e-4 of itself); at the prefill and ragged shapes planted faults must
+    # fail the same check. No one torch call computes either function:
+    # library_ms is null.
+    gen9 = make_generator(SEED + 9, dev)
+
+    def rnf(*shape):
+        return torch.randn(*shape, generator=gen9, device=dev)
+    for geo, (nb, T, Ei, N), with_h0 in (
+            ("train", (MAMBA_B, MAMBA_T, 2048, 16), False),
+            ("pref", (MAMBA_SERVE_B, T0, 2048, 16), True),
+            ("rag", (3, 300, 200, 16), True)):
+        A_ = -(torch.arange(1, N + 1, device=dev).float()
+               * (1 + 0.1 * rnf(Ei, N)))
+        args = (rnf(nb, T, Ei), torch.nn.functional.softplus(rnf(nb, T, Ei)),
+                A_, rnf(nb, T, N), rnf(nb, T, N), rnf(Ei),
+                rnf(nb, Ei, N) if with_h0 else None)
+        h0 = args[6]
+        dy, dh_last = rnf(nb, T, Ei), rnf(nb, Ei, N) if with_h0 else None
+        timed = geo == "train"
+        el, st, bn = nb * T * Ei * 4, nb * Ei * N * 4, nb * T * N * 4
+        # The bounds count what the function needs, not the kernels'
+        # design: boundary states for the backward at the Pallas kernel's
+        # 128-step chunk (the kernels save one every 16 steps at N=16, 8×
+        # the bytes), dB, dC and dA fully reduced (the kernels write
+        # per-channel-block and per-batch-row partials).
+        bounds = nb * -(-T // 128) * Ei * N * 4
+        small = Ei * N * 4 + 2 * bn          # A, B, C; or dA, dB, dC
+        h_io = st * (2 if with_h0 else 1)    # h_T written, h0 read
+        shape = f"[{nb},{T},{Ei}] N{N}{' h0' if with_h0 else ''}"
+        scan_tol = "scan mismatch<=1"
+        # u, Δ, A, B, C, D read, y written, the boundary states written
+        case("selective_scan", geo, shape,
+             lambda: SS.selective_scan(*args[:6], initial_state=h0,
+                                       return_state=True),
+             lambda: SS.selective_scan_reference(*args),
+             3 * el + small + Ei * 4 + h_io + bounds,
+             6 * nb * T * Ei * N, timed=timed, timer=time_ms_eager,
+             kernel_only=lambda: SS._fwd_kernel(*args[:6], h0, save=True),
+             mismatch=SS.mismatch, tol=scan_tol, ops_rate=FP32_OPS_PER_S)
+        hsave = SS._fwd_kernel(*args[:6], h0, save=True)[1]
+        # u, Δ, dy, A, B, C and the boundary states read, du, dΔ, dA, dB,
+        # dC written; with h0, dh_T read and dh0 written
+        case("selective_scan_bwd", geo, shape,
+             lambda: SS._bwd_kernel(*args[:5], hsave, dy, dh_last),
+             lambda: SS.selective_scan_bwd_reference(*args[:5], dy, h0,
+                                                     dh_last),
+             5 * el + 2 * small + (2 * st if with_h0 else 0) + bounds,
+             20 * nb * T * Ei * N, timed=timed, timer=time_ms_eager,
+             mismatch=SS.mismatch, tol=scan_tol, ops_rate=FP32_OPS_PER_S)
+        if not timed:
+            fwd_bad, bwd_bad = scan_faults(args, dy, dh_last)
+            readings = {}
+            for kern, bad_set, want in (
+                    ("selective_scan", fwd_bad,
+                     SS.selective_scan_reference(*args)),
+                    ("selective_scan_bwd", bwd_bad,
+                     SS.selective_scan_bwd_reference(*args[:5], dy, h0,
+                                                     dh_last))):
+                for fault, bad in bad_set.items():
+                    readings[f"{kern}: {fault}"] = SS.mismatch(bad, want)
+            rows[-1]["faults"] = readings
+            log(f"    selective_scan {geo} planted faults (must exceed 1): "
+                f"{readings}")
+            for fault, r in readings.items():
+                if r <= 1.0:
+                    failures.append(f"{fault} {geo}: the planted fault "
+                                    f"passes the check ({r})")
+            del fwd_bad, bwd_bad
+        del args, dy, dh_last, hsave, A_, h0
+        torch.cuda.empty_cache()
+
+    # decode attention on the int8 cache (B9-int8) at phase 3's cache
+    # (Llama-2-7B, B=4, S=160), quantized from random bf16 k and v whose
+    # per-position magnitudes spread over 0.3-3; bf16, held at
+    # KERNEL_ATOL + KERNEL_RTOL·|ref|. SDPA over the dequantized bf16
+    # prefix plus the new k/v is recorded beside it as a yardstick (it
+    # reads bf16, not the int8 cache: not the same function, so
+    # library_ms is null); planted faults must fail the check.
+    L8, S8, H8, D8 = 32, T0 + NEW, 32, 128
+    raw = [(rnf(L8 * B, H8, S8, D8) * (0.3 + 2.7 * torch.rand(
+        L8 * B, H8, S8, 1, generator=gen9, device=dev))).to(bf16)
+        for _ in range(2)]
+    (kq, ks), (vq, vs) = (_quant_chunk(r) for r in raw)
+    del raw
+    cache8 = tuple(t.reshape(L8, B, *t.shape[1:]) for t in (kq, vq, ks, vs))
+    del kq, vq, ks, vs
+    qd, kn, vn = (rnf(*s_).to(bf16) for s_ in ((B, 1, H8, D8),
+                                               (B, H8, 1, D8),
+                                               (B, H8, 1, D8)))
+    mean_fill = T0 + (NEW - 2) // 2
+    for idx in (1, 77, T0, mean_fill, S8 - 1):
+        timed = idx == mean_fill
+        case("decode_attention_int8", "7B",
+             f"cache int8[{L8},{B},{H8},{S8},{D8}] Hq{H8} index {idx}",
+             layer_walk(lambda lay, i=idx: DA.decode_attention(
+                 qd, kn, vn, cache8, lay, i), L8),
+             layer_walk(lambda lay, i=idx: DA.decode_attention_int8_reference(
+                 qd, kn, vn, cache8, lay, i), L8),
+             2 * B * H8 * idx * (D8 + 4) + 2 * (2 * qd.numel()
+                                                 + 2 * kn.numel()),
+             4 * B * H8 * D8 * (idx + 1), timed=timed)
+        if timed:
+            qs = qd.transpose(1, 2)
+            kv = [tuple(torch.cat([(c[lay, :, :, :idx].to(bf16)
+                                    * s_[lay, :, :, :idx].to(bf16)[..., None]),
+                                   new], 2)
+                        for c, s_, new in ((cache8[0], cache8[2], kn),
+                                           (cache8[1], cache8[3], vn)))
+                  for lay in range(L8)]
+            rows[-1]["sdpa_dequantized_bf16_ms"] = time_ms(layer_walk(
+                lambda lay: sdpa(qs, *kv[lay]), L8))
+            want = DA.decode_attention_int8_reference(qd, kn, vn, cache8, 0,
+                                                      idx)
+            faults = {}
+            for fault, bad_cache in int8_faults(cache8).items():
+                bad = DA.decode_attention_int8_reference(qd, kn, vn,
+                                                         bad_cache, 0, idx)
+                faults[fault] = (bad.float() - want.float()).abs().max().item()
+                if bool(((bad.float() - want.float()).abs() <= KERNEL_ATOL
+                         + KERNEL_RTOL * want.float().abs()).all()):
+                    failures.append(f"decode_attention_int8: the planted "
+                                    f"fault '{fault}' passes the check")
+            rows[-1]["faults_max_abs"] = faults
+            log(f"    decode_attention_int8 SDPA over the dequantized bf16 "
+                f"prefix {rows[-1]['sdpa_dequantized_bf16_ms']:.4f} ms "
+                f"(yardstick); planted faults' max abs error (must fail "
+                f"the check): {faults}")
+            del kv, want, bad
+    del cache8, qd, kn, vn
+    torch.cuda.empty_cache()
     report["kernel_cases"] = rows
     torch.cuda.empty_cache()
 
@@ -1405,12 +1841,26 @@ def main() -> int:
     report["model_build_s"] = time.perf_counter() - t
     prompt = torch.randint(0, cfg.vocab_size, (B, T0), generator=gen,
                            device=dev)
-    launches = serve_phase(
+    launches, seq3 = serve_phase(
         "main_path", "Llama-2-7B", model, prompt,
         {"rms_norm": NEW * (2 * L + 1), "rope": NEW * 2 * L,
          "flash_attention": L, "decode_attention": (NEW - 1) * L},
         LOGIT_LIMITS, run)
-    del model
+
+    # ----------------------- 11. Llama-2-7B generate with the int8 cache
+    # on phase 3's model and prompt (no second 13.5 GB build; nothing
+    # drawn from ``gen``, so phase 4's batch stays where it was)
+    int8_launches, seq11 = serve_phase(
+        "int8_serving", "Llama-2-7B, int8 KV cache", model, prompt,
+        {"rms_norm": NEW * (2 * L + 1), "rope": NEW * 2 * L,
+         "flash_attention": L, "decode_attention_int8": (NEW - 1) * L},
+        INT8_LOGIT_LIMITS, run, probe=attention_serve_probe,
+        cache_dtype=torch.int8)
+    same = (seq11[:, T0:] == seq3[:, T0:]).float().mean().item()
+    report["int8_serving"]["greedy_tokens_equal_to_float_cache"] = same
+    log(f"int8_serving: {same:.4f} of the greedy tokens equal phase 3's "
+        "float-cache tokens (recorded)")
+    del model, seq3, seq11
     torch.cuda.empty_cache()
 
     # --------------------------------------------------- 4. training path
@@ -1481,12 +1931,12 @@ def main() -> int:
     prompt = torch.randint(0, gcfg.vocab_size, (B, T0),
                            generator=make_generator(SEED + 6, dev),
                            device=dev)
-    gpt_serve_launches = serve_phase(
+    gpt_serve_launches, _ = serve_phase(
         "gpt_serving", f"GPT-3 6.7B (~{gcfg.num_params() / 1e9:.2f} B "
         "parameters)", model, prompt,
         {"layer_norm": NEW * (2 * GL + 1), "flash_attention": GL,
          "decode_attention": (NEW - 1) * GL},
-        GPT_LOGIT_LIMITS, run, probe=True)
+        GPT_LOGIT_LIMITS, run, probe=attention_serve_probe)
     del model
     torch.cuda.empty_cache()
 
@@ -1506,7 +1956,8 @@ def main() -> int:
          "flash_attention_bwd_dkdv": GL, "adamw": 12 * GL + 5},
         {}, run, expected_loss=math.log(g13.vocab_size),
         n_params=g13.num_params(), hidden=g13.hidden_size, n_layers=GL,
-        sanity=GPT_TRAIN_SANITY, probe=True)
+        sanity=GPT_TRAIN_SANITY,
+        probe=(recording_attention, attention_probe))
 
     # -------------------------------------- 8. ERNIE-base pretraining
     ecfg = ErnieConfig.base()
@@ -1528,8 +1979,50 @@ def main() -> int:
          "flash_attention_bwd_dkdv": EL, "adamw": None},
         {}, run, expected_loss=math.log(ecfg.vocab_size) + math.log(2),
         n_params=None, hidden=ecfg.hidden_size, n_layers=EL,
-        sanity=ERNIE_SANITY, probe=True)
+        sanity=ERNIE_SANITY,
+        probe=(recording_attention, attention_probe))
     report["ernie"]["mlm_share"] = masked.float().mean().item()
+
+    # ------------------------------------------- 9. Mamba-0.2B generate
+    mcfg = MambaConfig(vocab_size=50304, hidden_size=1024, num_layers=24,
+                       dtype="bfloat16")
+    ML = mcfg.num_layers
+    model = MambaForCausalLM(mcfg, device=dev,
+                             generator=make_generator(SEED, dev))
+    prompt = torch.randint(0, mcfg.vocab_size, (MAMBA_SERVE_B, T0),
+                           generator=make_generator(SEED + 10, dev),
+                           device=dev)
+    # a decode step reads and writes every layer's conv tail and state
+    state_bytes = 2 * sum(t.numel() * t.element_size()
+                          for t in model.init_cache(MAMBA_SERVE_B))
+    mamba_serve_launches, _ = serve_phase(
+        "mamba_serving", f"Mamba ({mcfg.num_params() / 1e6:.1f} M "
+        f"parameters, {ML} layers)", model, prompt,
+        {"selective_scan": ML, "rms_norm": NEW * (ML + 1)},
+        MAMBA_LOGIT_LIMITS, run, probe=scan_serve_probe, control=bf16_state,
+        state_bytes=state_bytes)
+    report["mamba_serving"]["config"] = dataclasses.asdict(mcfg)
+    del model
+    torch.cuda.empty_cache()
+
+    # -------------------------------------- 10. Mamba-0.2B training
+    mtcfg = dataclasses.replace(mcfg, remat=True)
+    ids = torch.randint(0, mtcfg.vocab_size, (MAMBA_B, MAMBA_T),
+                        generator=make_generator(SEED + 11, dev), device=dev)
+    # FLOPs share: 6·N per token (n_layers=0 drops the attention term)
+    mamba_train_launches = train_phase(
+        "mamba_training", f"Mamba ({mtcfg.num_params() / 1e6:.1f} M "
+        f"parameters, {ML} layers, recompute)",
+        lambda: MambaForCausalLM(mtcfg, device=dev,
+                                 generator=make_generator(SEED, dev)),
+        {"input_ids": ids, "labels": ids},
+        {"selective_scan": 2 * ML, "selective_scan_bwd": ML,
+         "rms_norm": 2 * ML + 1, "rms_norm_bwd": ML + 1, "adamw": None},
+        MAMBA_TRAIN_LIMITS, run, expected_loss=math.log(mtcfg.vocab_size),
+        n_params=mtcfg.num_params(), hidden=mtcfg.hidden_size, n_layers=0,
+        sanity=MAMBA_TRAIN_SANITY, control=("state control", bf16_state),
+        probe=(recording_scan, scan_probe))
+    report["mamba_training"]["config"] = dataclasses.asdict(mtcfg)
 
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke_report.json"),
@@ -1549,6 +2042,8 @@ def main() -> int:
             "replaces": REPLACES[name],
             "launches": (bench_launches if name in HEAD_KERNELS
                          else gpt_train_launches if name in LN_KERNELS
+                         else mamba_train_launches if name in SCAN_KERNELS
+                         else int8_launches if name == "decode_attention_int8"
                          else train_launches if name in TRAIN_KERNELS
                          else launches)[name],
             "launches_by_path": {"serving": launches[name],
@@ -1556,7 +2051,11 @@ def main() -> int:
                                  "bench": bench_launches[name],
                                  "gpt_serving": gpt_serve_launches[name],
                                  "gpt_training": gpt_train_launches[name],
-                                 "ernie": ernie_launches[name]},
+                                 "ernie": ernie_launches[name],
+                                 "mamba_serving": mamba_serve_launches[name],
+                                 "mamba_training":
+                                     mamba_train_launches[name],
+                                 "int8_serving": int8_launches[name]},
             "max_abs_err": max(r["max_abs_err"] for r in rows
                                if r["kernel"] == name),
             "ms": row["ms"], "plain_ms": row["plain_ms"],

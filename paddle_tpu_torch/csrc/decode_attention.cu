@@ -1,15 +1,30 @@
 // One-token decode attention over the stacked static KV cache.
 // q [B, Hq, D], the step's own k/v kn/vn [B, Hkv, D], the WHOLE cache
-// k_cache/v_cache [L, B, Hkv, S, D] (float layout), out [B, Hq, D].
-// Layer `layer` is read in place through its offset (no per-layer slice
-// is ever copied); only positions [0, index) are read, and the fresh
-// token joins the softmax first. q-head h·G + g reads kv-head h.
+// k_cache/v_cache [L, B, Hkv, S, D], out [B, Hq, D]. Two layouts: float
+// (the cache in q's type) and int8 (int8 k/v with fp32 per-position
+// scales k_scale/v_scale [L, B, Hkv, S]). Layer `layer` is read in place
+// through its offset (no per-layer slice is ever copied); only positions
+// [0, index) are read, and the fresh token joins the softmax first.
+// q-head h·G + g reads kv-head h.
 //
 // Replaces: paddle_tpu/ops/pallas/decode_attention.py:211 raw_call
-//   (_kernel :98), float layout. The int8 layout is later work.
+//   (_kernel :98), both layouts.
 // Bound on the H100: memory. Each step reads index·Hkv·D·2 cache
-//   elements per batch row for ~4·G operations per element pair, far
-//   below the tensor cores' operations-per-byte line.
+//   elements per batch row (2 bytes each in bf16, 1 in int8, plus 8
+//   bytes of scales per position) for ~4·G operations per element pair,
+//   far below the tensor cores' operations-per-byte line.
+// int8 numerics follow the Pallas kernel (:134-172), not the JAX einsum
+//   arm: k and v convert exactly to fp32 (|x| <= 127); the k scale folds
+//   into each position's fp32 logit, the v scale into its probability,
+//   which is then rounded to q's type (the Pallas kernel's cast before its
+//   PV product); the softmax's sum takes the unrounded probabilities. The
+//   step's own k/v attend raw. That rounding depends on the running
+//   maximum each probability is taken against, so the int8 layout runs
+//   its softmax in log2 units with every running maximum rounded up to an
+//   integer: rescaling by another maximum is then a power of two, which
+//   commutes with the rounding, and the result equals a softmax taken
+//   against the final maximum (the plain version's) up to the exps' own
+//   last bits.
 // Design: one block of 4 warps per (b, kv-head). All G query heads of the
 //   group are computed together, so each cache row is read once for the
 //   group. A lane owns D/32 columns (lane + 32·c): loads are coalesced
@@ -20,16 +35,52 @@
 //   and any index are taken: nothing past index is read.
 #include "common.cuh"
 
+#include <type_traits>
+
 namespace {
 
 constexpr int kWarps = 4;
 
-template <typename T, int D, int G>
+template <typename CT>
+__device__ __forceinline__ float load_f32(CT v) {
+  return ptt::to_f32(v);
+}
+template <>
+__device__ __forceinline__ float load_f32<int8_t>(int8_t v) {
+  return static_cast<float>(v);
+}
+
+constexpr float kLog2e = 1.4426950408889634f;
+
+// The softmax's exp and running-maximum anchor: natural units and the
+// maximum itself for the float layout; log2 units and the maximum rounded
+// up to an integer for the int8 layout (see the note above).
+template <bool QUANT>
+__device__ __forceinline__ float softmax_exp(float x) {
+  if constexpr (QUANT) {
+    float y;
+    asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+    return y;
+  } else {
+    return __expf(x);
+  }
+}
+template <bool QUANT>
+__device__ __forceinline__ float softmax_anchor(float s) {
+  if constexpr (QUANT) return ceilf(s);
+  return s;
+}
+
+// CT is the cache's element type: T (float layout) or int8_t (QUANT).
+template <typename T, typename CT, bool QUANT, int D, int G>
 __global__ void __launch_bounds__(kWarps * 32)
 decode_kernel(const T* __restrict__ q, const T* __restrict__ kn,
-              const T* __restrict__ vn, const T* __restrict__ k_cache,
-              const T* __restrict__ v_cache, T* __restrict__ out, int nb,
-              int hkv, int s_len, int layer, int index, float scale) {
+              const T* __restrict__ vn, const CT* __restrict__ k_cache,
+              const CT* __restrict__ v_cache,
+              const float* __restrict__ k_scale,
+              const float* __restrict__ v_scale, T* __restrict__ out,
+              int nb, int hkv, int s_len, int layer, int index,
+              float scale) {
   constexpr int C = D / 32;
   __shared__ float sm_m[kWarps][G];
   __shared__ float sm_l[kWarps][G];
@@ -44,7 +95,8 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ kn,
   for (int g = 0; g < G; ++g)
 #pragma unroll
     for (int c = 0; c < C; ++c)
-      qr[g][c] = ptt::to_f32(q[((int64_t)b * hq + h * G + g) * D + lane + 32 * c]) * scale;
+      qr[g][c] = ptt::to_f32(q[((int64_t)b * hq + h * G + g) * D + lane + 32 * c]) *
+                 (QUANT ? scale * kLog2e : scale);
 
   float m[G], l[G], acc[G][C];
   if (warp == 0) {
@@ -60,10 +112,12 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ kn,
       float part = 0.f;
 #pragma unroll
       for (int c = 0; c < C; ++c) part = fmaf(qr[g][c], knr[c], part);
-      m[g] = ptt::warp_sum(part);
-      l[g] = 1.f;
+      const float s = ptt::warp_sum(part);
+      m[g] = softmax_anchor<QUANT>(s);
+      const float p = softmax_exp<QUANT>(s - m[g]);  // 1 in the float layout
+      l[g] = p;
 #pragma unroll
-      for (int c = 0; c < C; ++c) acc[g][c] = vnr[c];
+      for (int c = 0; c < C; ++c) acc[g][c] = p * vnr[c];
     }
   } else {
 #pragma unroll
@@ -75,30 +129,39 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ kn,
     }
   }
 
-  const int64_t head_off =
-      ((((int64_t)layer * nb + b) * hkv + h) * (int64_t)s_len) * D + lane;
-  const T* kc = k_cache + head_off;
-  const T* vc = v_cache + head_off;
+  const int64_t row_off =
+      (((int64_t)layer * nb + b) * hkv + h) * (int64_t)s_len;
+  const CT* kc = k_cache + row_off * D + lane;
+  const CT* vc = v_cache + row_off * D + lane;
   for (int j = warp; j < index; j += kWarps) {
     float kr[C], vr[C];
 #pragma unroll
     for (int c = 0; c < C; ++c) {
-      kr[c] = ptt::to_f32(kc[(int64_t)j * D + 32 * c]);
-      vr[c] = ptt::to_f32(vc[(int64_t)j * D + 32 * c]);
+      kr[c] = load_f32(kc[(int64_t)j * D + 32 * c]);
+      vr[c] = load_f32(vc[(int64_t)j * D + 32 * c]);
+    }
+    float ks = 1.f, vs = 1.f;
+    if constexpr (QUANT) {
+      ks = k_scale[row_off + j];
+      vs = v_scale[row_off + j];
     }
 #pragma unroll
     for (int g = 0; g < G; ++g) {
       float part = 0.f;
 #pragma unroll
       for (int c = 0; c < C; ++c) part = fmaf(qr[g][c], kr[c], part);
-      const float s = ptt::warp_sum(part);
-      const float m_new = fmaxf(m[g], s);
-      const float alpha = __expf(m[g] - m_new);
-      const float p = __expf(s - m_new);
+      float s = ptt::warp_sum(part);
+      if constexpr (QUANT) s *= ks;
+      const float m_new = fmaxf(m[g], softmax_anchor<QUANT>(s));
+      const float alpha = softmax_exp<QUANT>(m[g] - m_new);
+      const float p = softmax_exp<QUANT>(s - m_new);
       l[g] = l[g] * alpha + p;
       m[g] = m_new;
+      float pv = p;
+      if constexpr (QUANT) pv = ptt::round_to<T>(p * vs);
 #pragma unroll
-      for (int c = 0; c < C; ++c) acc[g][c] = fmaf(p, vr[c], acc[g][c] * alpha);
+      for (int c = 0; c < C; ++c)
+        acc[g][c] = fmaf(pv, vr[c], acc[g][c] * alpha);
     }
   }
 
@@ -121,7 +184,8 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ kn,
     float den = 0.f, num = 0.f;
 #pragma unroll
     for (int w = 0; w < kWarps; ++w) {
-      const float f = __expf(sm_m[w][g] - mx);  // 0 for a warp with no rows
+      // 0 for a warp with no rows
+      const float f = softmax_exp<QUANT>(sm_m[w][g] - mx);
       den = fmaf(sm_l[w][g], f, den);
       num = fmaf(sm_acc[w][g][d], f, num);
     }
@@ -129,18 +193,19 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ kn,
   }
 }
 
-template <typename T, int D>
+template <typename T, typename CT, bool QUANT, int D>
 int launch_d(int g, const void* q, const void* kn, const void* vn,
-             const void* kc, const void* vc, void* out, int b, int hkv,
-             int s_len, int layer, int index, float scale, cudaStream_t s) {
+             const void* kc, const void* vc, const float* ks,
+             const float* vs, void* out, int b, int hkv, int s_len,
+             int layer, int index, float scale, cudaStream_t s) {
   dim3 grid(hkv, b);
 #define PTT_DECODE_CASE(GV)                                                 \
   case GV:                                                                  \
-    decode_kernel<T, D, GV><<<grid, kWarps * 32, 0, s>>>(                   \
+    decode_kernel<T, CT, QUANT, D, GV><<<grid, kWarps * 32, 0, s>>>(        \
         static_cast<const T*>(q), static_cast<const T*>(kn),                \
-        static_cast<const T*>(vn), static_cast<const T*>(kc),               \
-        static_cast<const T*>(vc), static_cast<T*>(out), b, hkv, s_len,     \
-        layer, index, scale);                                               \
+        static_cast<const T*>(vn), static_cast<const CT*>(kc),              \
+        static_cast<const CT*>(vc), ks, vs, static_cast<T*>(out), b, hkv,   \
+        s_len, layer, index, scale);                                        \
     break;
   switch (g) {
     PTT_DECODE_CASE(1)
@@ -154,35 +219,62 @@ int launch_d(int g, const void* q, const void* kn, const void* vn,
   return (int)cudaGetLastError();
 }
 
+template <typename CT, bool QUANT>
+int dispatch(const void* q, const void* kn, const void* vn,
+             const void* k_cache, const void* v_cache, const float* k_scale,
+             const float* v_scale, void* out, int b, int hq, int hkv,
+             int s_len, int d, int layer, int index, float scale, int dtype,
+             void* stream) {
+  if (b <= 0 || hkv <= 0 || hq % hkv || index < 0 || index > s_len)
+    return (int)cudaErrorInvalidValue;
+  const int g = hq / hkv;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  PTT_DISPATCH_DTYPE(dtype, T, {
+    using C = typename std::conditional<QUANT, CT, T>::type;
+    switch (d) {
+      case 64:
+        return launch_d<T, C, QUANT, 64>(g, q, kn, vn, k_cache, v_cache,
+                                         k_scale, v_scale, out, b, hkv,
+                                         s_len, layer, index, scale, s);
+      case 128:
+        return launch_d<T, C, QUANT, 128>(g, q, kn, vn, k_cache, v_cache,
+                                          k_scale, v_scale, out, b, hkv,
+                                          s_len, layer, index, scale, s);
+      case 256:
+        return launch_d<T, C, QUANT, 256>(g, q, kn, vn, k_cache, v_cache,
+                                          k_scale, v_scale, out, b, hkv,
+                                          s_len, layer, index, scale, s);
+      default:
+        return (int)cudaErrorInvalidValue;
+    }
+  });
+  return (int)cudaErrorInvalidValue;
+}
+
 }  // namespace
 
-// q/out [B, Hq, D], kn/vn [B, Hkv, D], caches [L, B, Hkv, S, D], all
-// contiguous. D in {64, 128, 256}; G = Hq / Hkv in {1, 2, 4, 8};
-// 0 <= index <= S; 0 <= layer < L.
+// q/out [B, Hq, D], kn/vn [B, Hkv, D], caches [L, B, Hkv, S, D] in q's
+// type, all contiguous. D in {64, 128, 256}; G = Hq / Hkv in
+// {1, 2, 4, 8}; 0 <= index <= S; 0 <= layer < L.
 extern "C" int ptt_decode_attention(const void* q, const void* kn,
                                     const void* vn, const void* k_cache,
                                     const void* v_cache, void* out, int b,
                                     int hq, int hkv, int s_len, int d,
                                     int layer, int index, float scale,
                                     int dtype, void* stream) {
-  if (b <= 0 || hkv <= 0 || hq % hkv || index < 0 || index > s_len)
-    return (int)cudaErrorInvalidValue;
-  const int g = hq / hkv;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  PTT_DISPATCH_DTYPE(dtype, T, {
-    switch (d) {
-      case 64:
-        return launch_d<T, 64>(g, q, kn, vn, k_cache, v_cache, out, b, hkv,
-                               s_len, layer, index, scale, s);
-      case 128:
-        return launch_d<T, 128>(g, q, kn, vn, k_cache, v_cache, out, b, hkv,
-                                s_len, layer, index, scale, s);
-      case 256:
-        return launch_d<T, 256>(g, q, kn, vn, k_cache, v_cache, out, b, hkv,
-                                s_len, layer, index, scale, s);
-      default:
-        return (int)cudaErrorInvalidValue;
-    }
-  });
-  return (int)cudaErrorInvalidValue;
+  return dispatch<void, false>(q, kn, vn, k_cache, v_cache, nullptr,
+                               nullptr, out, b, hq, hkv, s_len, d, layer,
+                               index, scale, dtype, stream);
+}
+
+// The int8 layout: k_cache/v_cache int8 [L, B, Hkv, S, D], k_scale/
+// v_scale fp32 [L, B, Hkv, S]; q, kn, vn and out as above.
+extern "C" int ptt_decode_attention_int8(
+    const void* q, const void* kn, const void* vn, const void* k_cache,
+    const void* v_cache, const float* k_scale, const float* v_scale,
+    void* out, int b, int hq, int hkv, int s_len, int d, int layer,
+    int index, float scale, int dtype, void* stream) {
+  return dispatch<int8_t, true>(q, kn, vn, k_cache, v_cache, k_scale,
+                                v_scale, out, b, hq, hkv, s_len, d, layer,
+                                index, scale, dtype, stream);
 }

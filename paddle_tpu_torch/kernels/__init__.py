@@ -1,16 +1,17 @@
 """The port's hand-written Hopper kernels, one module each, with the plain
 PyTorch version of each beside it: ``norm`` (RMSNorm and LayerNorm,
 forward and backward), ``rope.apply_rotary``, ``flash_attention`` (forward and the dq
-and dk/dv backward), ``decode_attention.decode_attention``,
-``adamw.adamw_update`` and ``linear_xent`` (the fused LM head ⊗
-cross-entropy forward, dH and dW). The differentiable ones are
+and dk/dv backward), ``decode_attention.decode_attention`` (float and
+int8 caches), ``adamw.adamw_update``, ``linear_xent`` (the fused LM head
+⊗ cross-entropy forward, dH and dW) and ``selective_scan`` (Mamba's
+recurrence, forward and backward). The differentiable ones are
 ``torch.autograd.Function``s whose backward is a kernel too. See
 ``_support`` for the build, the dispatch rule, the launch counters and
 ``force_reference()``."""
 
 from paddle_tpu_torch.kernels import (_support, adamw, decode_attention,
                                       flash_attention, linear_xent, norm,
-                                      rope)
+                                      rope, selective_scan)
 
 __all__ = ["_support", "adamw", "decode_attention", "flash_attention",
-           "linear_xent", "norm", "rope"]
+           "linear_xent", "norm", "rope", "selective_scan"]

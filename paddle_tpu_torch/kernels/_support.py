@@ -26,7 +26,8 @@ Counting. ``LAUNCHES[name]`` is a plain int that the wrapper raises by
 one where it launches its kernel, and nowhere else. A kernel's name is
 its counter's; ``SOURCES`` maps it to the ``.cu`` file that holds it
 (one source may hold several kernels, e.g. the forward and backward of
-RMSNorm, or of LayerNorm).
+RMSNorm, of LayerNorm or of the selective scan, or the two layouts of
+decode attention).
 """
 
 from __future__ import annotations
@@ -60,6 +61,9 @@ SOURCES = {
     "linear_xent_fwd": "linear_xent",
     "linear_xent_dh": "linear_xent",
     "linear_xent_dw": "linear_xent",
+    "selective_scan": "selective_scan",
+    "selective_scan_bwd": "selective_scan",
+    "decode_attention_int8": "decode_attention",
 }
 KERNELS = tuple(SOURCES)
 LAUNCHES = {name: 0 for name in KERNELS}

@@ -1,7 +1,12 @@
-"""Decode attention over the stacked static KV cache, float layout: CUDA
-kernel (``csrc/decode_attention.cu``) and its plain PyTorch version.
+"""Decode attention over the stacked static KV cache, float and int8
+layouts: CUDA kernels (``csrc/decode_attention.cu``) and their plain
+PyTorch versions.
 
-Replaces ``paddle_tpu/ops/pallas/decode_attention.py:211 raw_call``.
+Replaces ``paddle_tpu/ops/pallas/decode_attention.py:211 raw_call``, both
+layouts: the float cache ``(k, v)`` [L, B, Hkv, S, D] in q's type, and
+the int8 cache ``(k_q, v_q, k_scale, v_scale)`` with fp32 per-position
+scales [L, B, Hkv, S]. Each layout has its own launch counter
+(``decode_attention``, ``decode_attention_int8``).
 The kernel takes the WHOLE stacked ``[L, B, Hkv, S, D]`` buffers with
 ``layer`` and ``index`` as arguments and reads layer ``layer``,
 positions ``[0, index)``, in place: no per-layer slice is copied (the
@@ -20,9 +25,12 @@ import torch
 
 from paddle_tpu_torch.kernels import _support
 
-__all__ = ["decode_attention", "decode_attention_reference"]
+__all__ = ["decode_attention", "decode_attention_reference",
+           "decode_attention_int8_reference"]
 
 _NAME = "decode_attention"
+_INT8_NAME = "decode_attention_int8"
+LOG2E = 1.4426950408889634
 HEAD_DIMS = (64, 128, 256)
 GROUPS = (1, 2, 4, 8)
 
@@ -53,6 +61,52 @@ def decode_attention_reference(q, k_new, v_new, cache, layer: int,
     return out.reshape(B, Hq, T, D).permute(0, 2, 1, 3).to(q.dtype)
 
 
+def decode_attention_int8_reference(q, k_new, v_new, cache, layer: int,
+                                    index: int, *, scale=None):
+    """Plain version of the int8 layout, for any chunk length T, with the
+    Pallas kernel's numerics (``decode_attention.py:134-172``): the int8
+    k and v exactly in fp32, each position's k scale folded into its fp32
+    logit, the cache positions' probabilities times their v scale rounded
+    to q's type before the product with v (the softmax's sum takes them
+    unrounded); the chunk's own k/v attend raw under the chunk-local
+    causal mask. The softmax runs in log2 units against the largest logit
+    rounded up to an integer, so that a probability's rounding does not
+    depend on which maximum it is taken against (the kernel's running
+    maxima differ from it by powers of two). Returns [B, T, Hq, D]."""
+    B, T, Hq, D = q.shape
+    Hkv = k_new.shape[1]
+    G = Hq // Hkv
+    if scale is None:
+        scale = 1.0 / math.sqrt(D)
+    k_q, v_q, k_s, v_s = cache
+    kc = k_q[layer, :, :, :index].float()              # [B, Hkv, index, D]
+    vc = v_q[layer, :, :, :index].float()
+    ks = k_s[layer, :, :, :index].float()[:, :, None, None]
+    vs = v_s[layer, :, :, :index].float()[:, :, None, None]
+    qh = q.float().permute(0, 2, 1, 3).reshape(B, Hkv, G, T, D) * (
+        scale * LOG2E)
+    s_c = torch.einsum("bkgtd,bksd->bkgts", qh, kc) * ks
+    s_n = torch.einsum("bkgtd,bkud->bkgtu", qh, k_new.float())
+    causal = torch.ones(T, T, dtype=torch.bool, device=q.device).tril()
+    s_n = s_n.masked_fill(~causal, float("-inf"))
+    anchor = torch.cat([s_c, s_n], dim=-1).amax(-1, keepdim=True).ceil()
+    p_c, p_n = torch.exp2(s_c - anchor), torch.exp2(s_n - anchor)
+    den = p_c.sum(-1, keepdim=True) + p_n.sum(-1, keepdim=True)
+    out = (torch.einsum("bkgts,bksd->bkgtd",
+                        (p_c * vs).to(q.dtype).float(), vc)
+           + torch.einsum("bkgtu,bkud->bkgtd", p_n, v_new.float())) / den
+    return out.reshape(B, Hq, T, D).permute(0, 2, 1, 3).to(q.dtype)
+
+
+@functools.cache
+def _int8_entry():
+    fn = _support.library(_INT8_NAME).ptt_decode_attention_int8
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [
+        ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
 @functools.cache
 def _entry():
     fn = _support.library(_NAME).ptt_decode_attention
@@ -65,10 +119,13 @@ def _entry():
 def decode_attention(q, k_new, v_new, cache, layer: int, index: int, *,
                      scale=None):
     """One-token attention: q [B, 1, Hq, D], k_new/v_new [B, Hkv, 1, D],
-    ``cache`` = (k_buf, v_buf) [L, B, Hkv, S, D]; the layer's cache holds
-    tokens ``[0, index)``. Returns [B, 1, Hq, D]."""
+    ``cache`` = (k_buf, v_buf) [L, B, Hkv, S, D] in q's type, or the int8
+    layout (k_q, v_q [L, B, Hkv, S, D] int8, k_scale, v_scale
+    [L, B, Hkv, S] fp32); the layer's cache holds tokens ``[0, index)``.
+    Returns [B, 1, Hq, D]."""
     B, T, Hq, D = q.shape
-    k_buf, v_buf = cache
+    quantized = len(cache) == 4
+    k_buf, v_buf = cache[:2]
     L, Bc, Hkv, S, Dc = k_buf.shape
     if T != 1 or k_new.shape != (B, Hkv, 1, D) or v_new.shape != \
             k_new.shape or Bc != B or Dc != D or v_buf.shape != \
@@ -83,25 +140,49 @@ def decode_attention(q, k_new, v_new, cache, layer: int, index: int, *,
                          f"{index} of {S} out of range")
     if scale is None:
         scale = 1.0 / math.sqrt(D)
+    if quantized and (k_buf.dtype != torch.int8 or v_buf.dtype != torch.int8
+                      or any(t.shape != k_buf.shape[:4] or t.dtype !=
+                             torch.float32 for t in cache[2:])):
+        raise ValueError("decode_attention: the int8 layout is int8 k/v "
+                         "[L,B,Hkv,S,D] and fp32 scales [L,B,Hkv,S]")
     if not _support.use_kernel(q):
-        return decode_attention_reference(q, k_new, v_new, cache, layer,
-                                          index, scale=scale)
+        plain = (decode_attention_int8_reference if quantized
+                 else decode_attention_reference)
+        return plain(q, k_new, v_new, cache, layer, index, scale=scale)
+    return _kernel(q, k_new, v_new, cache, layer, index, scale)
+
+
+def _kernel(q, k_new, v_new, cache, layer, index, scale):
+    """The launch of the layout's kernel (checked shapes and range)."""
+    B, _, Hq, D = q.shape
+    quantized = len(cache) == 4
+    k_buf, v_buf = cache[:2]
+    Hkv, S = k_buf.shape[2], k_buf.shape[3]
     if D not in HEAD_DIMS or Hq // Hkv not in GROUPS:
         raise ValueError(f"decode_attention kernel: head_dim {D} not in "
                          f"{HEAD_DIMS} or group {Hq // Hkv} not in {GROUPS}")
     code = _support.dtype_code(q)
-    if any(t.dtype != q.dtype for t in (k_new, v_new, k_buf, v_buf)):
-        raise TypeError("decode_attention: q, k/v and the cache must share "
-                        "a dtype")
-    if not (k_buf.is_contiguous() and v_buf.is_contiguous()):
+    if any(t.dtype != q.dtype for t in (k_new, v_new)) or (
+            not quantized and any(t.dtype != q.dtype
+                                  for t in (k_buf, v_buf))):
+        raise TypeError("decode_attention: q, k/v and the float cache must "
+                        "share a dtype")
+    if not all(t.is_contiguous() for t in cache):
         raise ValueError("decode_attention: cache buffers must be "
                          "contiguous (the kernel reads them in place)")
     qc, kn, vn = q.contiguous(), k_new.contiguous(), v_new.contiguous()
     out = torch.empty_like(qc)
-    err = _entry()(qc.data_ptr(), kn.data_ptr(), vn.data_ptr(),
-                   k_buf.data_ptr(), v_buf.data_ptr(), out.data_ptr(), B,
-                   Hq, Hkv, S, D, layer, index, float(scale), code,
-                   _support.stream_of(qc))
-    _support.check(err, _NAME)
-    _support.LAUNCHES[_NAME] += 1
+    head = (qc.data_ptr(), kn.data_ptr(), vn.data_ptr(), k_buf.data_ptr(),
+            v_buf.data_ptr())
+    tail = (B, Hq, Hkv, S, D, layer, index, float(scale), code,
+            _support.stream_of(qc))
+    if quantized:
+        name = _INT8_NAME
+        err = _int8_entry()(*head, cache[2].data_ptr(), cache[3].data_ptr(),
+                            out.data_ptr(), *tail)
+    else:
+        name = _NAME
+        err = _entry()(*head, out.data_ptr(), *tail)
+    _support.check(err, name)
+    _support.LAUNCHES[name] += 1
     return out

@@ -5,7 +5,7 @@ port of ``paddle_tpu/models/generation.py:86 sample_logits`` and
 The JAX package compiles the whole loop (``lax.while_loop``); here the
 loop is Python driving one prefill and single-token decode steps against
 the fixed-shape cache, with the same early exit once every row has
-emitted EOS. Works with any model exposing ``init_cache(B, S)`` and
+emitted EOS. Works with any model exposing ``init_cache(B, S, dtype)`` and
 ``forward_with_cache(ids, cache, index)``.
 
 Sampling is split into a deterministic filter (``filter_logits``:
@@ -61,7 +61,7 @@ def sample_logits(logits, generator: torch.Generator | None = None, *,
 def generate(model, input_ids, max_new_tokens: int, *,
              temperature: float = 0.0, top_k: int = 0, top_p: float = 1.0,
              eos_token_id: int | None = None, pad_token_id: int = 0,
-             generator: torch.Generator | None = None):
+             generator: torch.Generator | None = None, cache_dtype=None):
     """Decode ``max_new_tokens`` tokens after the prompt ``input_ids``
     [B, T0] (a tensor or array of ints).
 
@@ -69,14 +69,16 @@ def generate(model, input_ids, max_new_tokens: int, *,
     positions after a row's EOS hold ``pad_token_id``. The loop stops as
     soon as every row has finished (the remaining positions already hold
     the pad). Sampling with ``temperature > 0`` and no ``generator`` draws
-    from a generator seeded with 0."""
+    from a generator seeded with 0. ``cache_dtype`` goes to the model's
+    ``init_cache`` (``torch.int8``: the quantized KV cache of the
+    attention families; Mamba keeps its float state)."""
     device = model.device
     input_ids = torch.as_tensor(input_ids, device=device).long()
     if max_new_tokens <= 0:
         return input_ids
     B, T0 = input_ids.shape
     S = T0 + int(max_new_tokens)
-    cache = model.init_cache(B, S)
+    cache = model.init_cache(B, S, dtype=cache_dtype)
     if temperature != 0.0 and generator is None:
         generator = torch.Generator(device=device)
         generator.manual_seed(0)

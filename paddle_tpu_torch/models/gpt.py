@@ -27,7 +27,8 @@ from torch import nn
 from paddle_tpu_torch.device import dtype_of, make_generator, resolve_device
 from paddle_tpu_torch.models._common import (apply_cache_writes,
                                              cached_attention,
-                                             causal_lm_loss, init_kv_cache)
+                                             causal_lm_loss, init_kv_cache,
+                                             stack_payloads)
 from paddle_tpu_torch.nn import functional as F
 from paddle_tpu_torch.nn.common import Dropout, Embedding, Linear
 from paddle_tpu_torch.nn.norm import LayerNorm
@@ -186,9 +187,11 @@ class GPTForCausalLM(nn.Module):
         return self.lm_head(self.hidden_states(input_ids, training,
                                                generator))
 
-    def init_cache(self, batch_size: int, max_len: int):
-        """Stacked static KV cache ([L, B, H, S, D], same) of zeros in the
-        model's type, on the model's device. Raises past ``max_seq_len``:
+    def init_cache(self, batch_size: int, max_len: int, dtype=None):
+        """Stacked static KV cache ([L, B, H, S, D], same) of zeros on the
+        model's device, in ``dtype`` (default: the model's type;
+        ``torch.int8``: the quantized 4-leaf layout, see
+        ``_common.init_kv_cache``). Raises past ``max_seq_len``:
         learned positions cannot extrapolate
         (``paddle_tpu/models/gpt.py:156-172``)."""
         cfg = self.config
@@ -198,8 +201,8 @@ class GPTForCausalLM(nn.Module):
                 f"{cfg.max_seq_len} (learned positional embeddings cannot "
                 "extrapolate)")
         return init_kv_cache(cfg.num_layers, batch_size, max_len,
-                             cfg.num_heads, cfg.head_dim, self.dtype,
-                             self.device)
+                             cfg.num_heads, cfg.head_dim,
+                             dtype_of(dtype or self.dtype), self.device)
 
     @torch.no_grad()
     def forward_with_cache(self, input_ids, cache, index):
@@ -208,13 +211,11 @@ class GPTForCausalLM(nn.Module):
         stacked write puts the chunk's k/v of all layers into the cache,
         in place. Returns (logits [B, T, V], cache)."""
         x = self._embed(input_ids, index)
-        ks, vs = [], []
+        payloads = []
         for layer, block in enumerate(self.blocks):
-            x, (k, v) = block(x, cache=cache, index=index, layer=layer)
-            ks.append(k)
-            vs.append(v)
-        cache = apply_cache_writes(cache, (torch.stack(ks), torch.stack(vs)),
-                                   index)
+            x, payload = block(x, cache=cache, index=index, layer=layer)
+            payloads.append(payload)
+        cache = apply_cache_writes(cache, stack_payloads(payloads), index)
         return self.lm_head(self.ln_f(x)), cache
 
     def generate(self, input_ids, max_new_tokens: int, **kwargs):

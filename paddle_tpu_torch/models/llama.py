@@ -23,7 +23,8 @@ from torch import nn
 from paddle_tpu_torch.device import dtype_of, make_generator, resolve_device
 from paddle_tpu_torch.models._common import (apply_cache_writes,
                                              cached_attention,
-                                             causal_lm_loss, init_kv_cache)
+                                             causal_lm_loss, init_kv_cache,
+                                             stack_payloads)
 from paddle_tpu_torch.nn import functional as F
 from paddle_tpu_torch.nn.common import Embedding, Linear
 from paddle_tpu_torch.nn.norm import RMSNorm
@@ -226,13 +227,15 @@ class LlamaForCausalLM(nn.Module):
     def forward(self, input_ids):
         return self._head(self.hidden_states(input_ids))
 
-    def init_cache(self, batch_size: int, max_len: int):
-        """Stacked static KV cache ([L, B, Hkv, S, D], same) of zeros in
-        the model's type, on the model's device."""
+    def init_cache(self, batch_size: int, max_len: int, dtype=None):
+        """Stacked static KV cache ([L, B, Hkv, S, D], same) of zeros on
+        the model's device, in ``dtype`` (default: the model's type;
+        ``torch.int8``: the quantized 4-leaf layout, see
+        ``_common.init_kv_cache``)."""
         cfg = self.config
         return init_kv_cache(cfg.num_layers, batch_size, max_len,
                              cfg.num_kv_heads, cfg.head_dim,
-                             self.dtype, self.device)
+                             dtype_of(dtype or self.dtype), self.device)
 
     @torch.no_grad()
     def forward_with_cache(self, input_ids, cache, index):
@@ -244,14 +247,12 @@ class LlamaForCausalLM(nn.Module):
         cache)."""
         x = self.embed(input_ids)
         rope = self._rope(input_ids.shape[1], index)
-        ks, vs = [], []
+        payloads = []
         for layer, block in enumerate(self.blocks):
-            x, (k, v) = block(x, rope=rope, cache=cache, index=index,
+            x, payload = block(x, rope=rope, cache=cache, index=index,
                               layer=layer)
-            ks.append(k)
-            vs.append(v)
-        cache = apply_cache_writes(cache, (torch.stack(ks), torch.stack(vs)),
-                                   index)
+            payloads.append(payload)
+        cache = apply_cache_writes(cache, stack_payloads(payloads), index)
         return self._head(self.norm(x)), cache
 
     def loss(self, input_ids, labels, ignore_index: int = -100,

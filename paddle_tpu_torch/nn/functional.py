@@ -1,7 +1,7 @@
 """Functional ops — the subset of ``paddle_tpu/nn/functional.py`` that the
-Llama, GPT and ERNIE serving and training paths need. Hot ops go through
-the port's kernels (``paddle_tpu_torch.kernels``), which launch on CUDA
-tensors and run their plain versions on CPU tensors; all of them are
+Llama, GPT, ERNIE and Mamba serving and training paths need. Hot ops go
+through the port's kernels (``paddle_tpu_torch.kernels``), which launch on
+CUDA tensors and run their plain versions on CPU tensors; all of them are
 differentiable. Randomness (``dropout``) comes from the caller's
 ``torch.Generator``, never from torch's global RNG.
 """
@@ -15,7 +15,7 @@ from torch.utils.checkpoint import checkpoint
 
 from paddle_tpu_torch import kernels
 
-__all__ = ["silu", "swiglu", "gelu", "linear", "embedding", "dropout",
+__all__ = ["silu", "swiglu", "gelu", "softplus", "linear", "embedding", "dropout",
            "rms_norm", "layer_norm", "rotary_embedding", "apply_rotary",
            "scaled_dot_product_attention", "softmax_with_cross_entropy",
            "cross_entropy", "check_head_mode", "linear_cross_entropy",
@@ -38,6 +38,14 @@ def gelu(x, approximate: bool = False):
     ``approximate=True``, which GPT and ERNIE use)."""
     return torch.nn.functional.gelu(x, approximate="tanh" if approximate
                                     else "none")
+
+
+def softplus(x, beta: float = 1.0, threshold: float = 20.0):
+    """``log(1 + exp(beta·x)) / beta``, and ``x`` itself where ``beta·x >
+    threshold`` (``paddle_tpu/nn/functional.py:110-112``)."""
+    xb = x * beta
+    return torch.where(xb > threshold, x,
+                       torch.nn.functional.softplus(xb) / beta)
 
 
 def linear(x, weight, bias=None):

@@ -9,7 +9,8 @@ JAX, so on such a host run it without the conftest:
 Every test skips without a CUDA device (the CPU run holds the plain
 versions against the JAX package in the other ``test_torch_*`` files).
 Each check comes with planted faults that must fail it, so a check too
-loose to see a wrong kernel fails too.
+loose to see a wrong kernel fails too; the selective scan's and the int8
+cache's are ``chip_smoke.py``'s own.
 """
 
 import math
@@ -17,12 +18,15 @@ import math
 import pytest
 import torch
 
+from chip_smoke import int8_faults, scan_faults
+
 from paddle_tpu_torch.kernels import _support
 from paddle_tpu_torch.kernels import adamw as A
 from paddle_tpu_torch.kernels import decode_attention as DA
 from paddle_tpu_torch.kernels import flash_attention as FA
 from paddle_tpu_torch.kernels import norm as N
 from paddle_tpu_torch.kernels import rope as R
+from paddle_tpu_torch.kernels import selective_scan as SS
 
 pytestmark = pytest.mark.port
 
@@ -95,14 +99,37 @@ def _ln_bwd_faults(x, w, mean, rstd, gr, want):
                                     want[1], want[2])}
 
 
+def _scan_inputs(g, nb, T, Ei, N, h0=True):
+    """fp32 ``(u, delta, A, B, C, D, h0)`` at Mamba's scales: delta a
+    softplus, A = -(1..N) jittered, the initial state random or None."""
+    def rn(*s):
+        return torch.randn(*s, generator=g, device="cuda")
+    A = -(torch.arange(1, N + 1, device="cuda").float()
+          * (1 + 0.1 * rn(Ei, N)))
+    return (rn(nb, T, Ei), torch.nn.functional.softplus(rn(nb, T, Ei)), A,
+            rn(nb, T, N), rn(nb, T, N), rn(Ei), rn(nb, Ei, N) if h0 else None)
+
+
+def _int8_cache(g, L, nb, hkv, S, D):
+    """A quantized cache (int8 k/v and per-position fp32 scales) of random
+    bf16 k/v, per-position magnitudes spread over 0.3-3."""
+    from paddle_tpu_torch.models._common import _quant_chunk
+    raw = [torch.randn(L * nb, hkv, S, D, generator=g, device="cuda")
+           * (0.3 + 2.7 * torch.rand(L * nb, hkv, S, 1, generator=g,
+                                     device="cuda")) for _ in range(2)]
+    (kq, ks), (vq, vs) = (_quant_chunk(r.bfloat16()) for r in raw)
+    return tuple(t.reshape(L, nb, *t.shape[1:]) for t in (kq, vq, ks, vs))
+
+
 @pytest.mark.parametrize("name", _support.KERNELS)
 def test_kernel_on_card(name):
     """Each CUDA kernel against its plain version on the card, bf16.
     Tolerance 2e-2 abs + rel: bf16 output rounding (2^-8 relative) plus
-    another fp32 summation order; AdamW, elementwise fp32, LayerNorm and
-    the fused head are held tighter (``update_mismatch``,
-    ``norm.layer_norm_mismatch`` / ``layer_norm_bwd_mismatch``,
-    ``linear_xent.mismatch``), and planted faults must fail their
+    another fp32 summation order; AdamW, elementwise fp32, LayerNorm, the
+    fused head and the fp32 selective scan are held tighter
+    (``update_mismatch``, ``norm.layer_norm_mismatch`` /
+    ``layer_norm_bwd_mismatch``, ``linear_xent.mismatch``,
+    ``selective_scan.mismatch``), and planted faults must fail their
     checks."""
     g = _generator()
 
@@ -194,6 +221,47 @@ def test_kernel_on_card(name):
                            *HEAD_TOL[name]) <= 1
         for bad in _head_faults(plain, h, w, lab, extra):
             assert LX.mismatch(bad, want, *HEAD_TOL[name]) > 1
+        return
+    elif name.startswith("selective_scan"):
+        # fp32, held per output at 1e-4 of its largest value plus 1e-4 of
+        # itself (``SS.mismatch``); T off every tile and Ei over three
+        # channel blocks (the last ragged), with and without an initial
+        # state; the planted faults must fail the same check
+        for shape, with_h0 in (((2, 77, 80, 16), True),
+                               ((1, 130, 64, 8), False)):
+            args = _scan_inputs(g, *shape, h0=with_h0)
+            u, h0 = args[0], args[6]
+            dy = torch.randn(u.shape, generator=g, device="cuda")
+            dh_last = (None if h0 is None else
+                       torch.randn(h0.shape, generator=g, device="cuda"))
+            fwd_bad, bwd_bad = scan_faults(args, dy, dh_last)
+            if name == "selective_scan":
+                got = SS.selective_scan(*args[:6], initial_state=h0,
+                                        return_state=True)
+                want = SS.selective_scan_reference(*args)
+                bad = fwd_bad
+            else:
+                hsave = SS._fwd_kernel(*args[:6], h0, save=True)[1]
+                got = SS._bwd_kernel(*args[:5], hsave, dy, dh_last)
+                want = SS.selective_scan_bwd_reference(*args[:5], dy, h0,
+                                                       dh_last)
+                bad = bwd_bad
+            torch.cuda.synchronize()
+            assert SS.mismatch(got, want) <= 1, shape
+            for fault, b in bad.items():
+                assert SS.mismatch(b, want) > 1, (shape, fault)
+        return
+    elif name == "decode_attention_int8":
+        cache = _int8_cache(g, 3, 2, 2, 90, 128)
+        q, kn, vn = rn(2, 1, 8, 128), rn(2, 2, 1, 128), rn(2, 2, 1, 128)
+        got = DA.decode_attention(q, kn, vn, cache, 2, 41)
+        want = DA.decode_attention_int8_reference(q, kn, vn, cache, 2, 41)
+        torch.cuda.synchronize()
+        assert _close(got, want)
+        for fault, bad_cache in int8_faults(cache).items():
+            bad = DA.decode_attention_int8_reference(q, kn, vn, bad_cache, 2,
+                                                     41)
+            assert not _close(bad, want), fault
         return
     else:
         q, kn, vn = rn(2, 1, 8, 128), rn(2, 2, 1, 128), rn(2, 2, 1, 128)

@@ -109,3 +109,35 @@ def test_cpu_run_builds_nothing():
     m = LlamaForCausalLM(LlamaConfig.tiny(), device="cpu")
     m.generate(torch.zeros((1, 4), dtype=torch.long), 3)
     assert all(n == 0 for n in _support.LAUNCHES.values())
+
+
+def test_scan_and_int8_kernels_are_counted_and_sourced():
+    """The Mamba scan (forward, backward) and the int8 decode layout each
+    have their own launch counter and their source in csrc/."""
+    assert {"selective_scan": "selective_scan",
+            "selective_scan_bwd": "selective_scan",
+            "decode_attention_int8": "decode_attention"}.items() <= \
+        _support.SOURCES.items()
+    for name in ("selective_scan", "selective_scan_bwd",
+                 "decode_attention_int8"):
+        assert name in _support.LAUNCHES
+
+
+def test_cpu_mamba_and_int8_runs_build_nothing():
+    """A CPU Mamba generate and a CPU int8-cache Llama generate run the
+    plain versions only: no kernel counted."""
+    from paddle_tpu_torch.models import MambaConfig, MambaForCausalLM
+    _support.reset_launches()
+    ids = torch.zeros((1, 4), dtype=torch.long)
+    MambaForCausalLM(MambaConfig.tiny(), device="cpu").generate(ids, 3)
+    LlamaForCausalLM(LlamaConfig.tiny(), device="cpu").generate(
+        ids, 3, cache_dtype=torch.int8)
+    assert all(n == 0 for n in _support.LAUNCHES.values())
+
+
+def test_mamba_default_device_raises_without_cuda():
+    from paddle_tpu_torch.models import MambaConfig, MambaForCausalLM
+    if torch.cuda.is_available():
+        pytest.skip("this host has a GPU: the default device is valid")
+    with pytest.raises(RuntimeError):
+        MambaForCausalLM(MambaConfig.tiny())

@@ -546,6 +546,120 @@ def test_cached_attention_chunk_past_index_raises_where_kernels_run(
         port_common.cached_attention(q, k, k, cache, 5, layer=0)
 
 
+def _int8_inputs(Hq, Hkv, L=2, S=128, seed=0):
+    """q, k_new, v_new and an int8 cache quantized (the port's
+    ``_quant_chunk``) from random k/v whose per-position magnitudes spread
+    over 0.3-3."""
+    from paddle_tpu_torch.models._common import _quant_chunk
+    q, kn, vn, (kc, vc) = _decode_inputs(Hq, Hkv, L=L, S=S, seed=seed)
+    spread = 0.3 + 2.7 * np.random.RandomState(seed + 9).rand(
+        L, 2, Hkv, S, 1).astype(np.float32)
+    (kq, ks), (vq, vs) = (_quant_chunk(_t(c * spread)) for c in (kc, vc))
+    return q, kn, vn, (kq, vq, ks, vs)
+
+
+def test_quant_chunk_matches_jax():
+    """Absmax int8: the same int8 values and fp32 scales, bit for bit,
+    including a zero row (scale floor 1e-8) and halves (round to even)."""
+    from paddle_tpu_torch.models._common import _quant_chunk
+    x = _np(2, 3, 5, 64, seed=11) * 4
+    x[0, 0, 0] = 0.0
+    x[1, 2, 1, :6] = [127.0, 0.5, 1.5, 2.5, -0.5, -2.5]
+    x[1, 2, 1, 6:] = 0.25
+    got = _quant_chunk(_t(x))
+    want = jax_common._quant_chunk(jnp.asarray(x))
+    for a, b in zip(got, want):
+        assert str(a.dtype)[6:] == str(b.dtype)
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+    assert got[0][1, 2, 1, :6].tolist() == [127, 0, 2, 2, 0, -2]
+
+
+@pytest.mark.parametrize("idx", [1, 37, 127])
+@pytest.mark.parametrize("Hq,Hkv", [(4, 4), (8, 2)])
+def test_int8_decode_matches_pallas(idx, Hq, Hkv):
+    """The int8 plain version against the Pallas kernel's int8 layout
+    (``raw_call`` under ``force_dispatch``), fp32 q: both fold the k scale
+    into the logits and the v scale into the probabilities."""
+    q, kn, vn, cache = _int8_inputs(Hq, Hkv, seed=idx)
+    got = DA.decode_attention(_t(q), _t(kn), _t(vn), cache, 1, idx).numpy()
+    jc = tuple(jnp.asarray(c.numpy()) for c in cache)
+    with jax_support.force_dispatch():
+        assert jax_decode.supported(jnp.asarray(q), jc)
+        want = jax_decode.decode_attention(
+            jnp.asarray(q), jnp.asarray(kn), jnp.asarray(vn), jc,
+            jnp.int32(1), jnp.int32(idx), scale=0.125)
+    np.testing.assert_allclose(got, np.asarray(want), **TOL)
+
+
+def test_int8_decode_bf16_matches_pallas():
+    """bf16 q: the probabilities times the v scale are rounded to bf16
+    before the product with v in both (at S = 128 the Pallas kernel's one
+    cache block sees the final maximum, so the roundings fall alike).
+    Held at two bf16 ulps of the output (2^-7 relative plus 2^-7 of the
+    largest value): the fp32 sums run in another order and the output is
+    rounded to bf16."""
+    q, kn, vn, cache = _int8_inputs(8, 2, seed=3)
+    qb, knb, vnb = (_t(a).bfloat16() for a in (q, kn, vn))
+    got = DA.decode_attention(qb, knb, vnb, cache, 0, 100).float().numpy()
+    jc = tuple(jnp.asarray(c.numpy()) for c in cache)
+    with jax_support.force_dispatch():
+        want = jax_decode.decode_attention(
+            *(jnp.asarray(a.float().numpy(), jnp.bfloat16)
+              for a in (qb, knb, vnb)), jc, jnp.int32(0), jnp.int32(100),
+            scale=0.125)
+    want = np.asarray(want.astype(jnp.float32))
+    np.testing.assert_allclose(got, want, rtol=2 ** -7,
+                               atol=2 ** -7 * np.abs(want).max())
+
+
+def test_int8_decode_against_the_einsum_arm():
+    """The JAX einsum arm dequantizes k and v to bf16 (the scale rounded
+    too) and takes bf16 logits before its softmax; the port follows the
+    Pallas kernel, which folds the scales in fp32. In bf16 the two differ
+    by the arm's rounding of logits of size ~3 (2^-8 of them, ~0.01) and
+    of the dequantized values: held at 0.05 of the largest output value,
+    which each planted fault misses (a v scale left out, scales per head
+    instead of per position)."""
+    q, kn, vn, cache = _int8_inputs(8, 2, seed=4)
+    qb, knb, vnb = (_t(a).bfloat16() for a in (q, kn, vn))
+    got = DA.decode_attention(qb, knb, vnb, cache, 1, 90).float()
+    jq = jnp.asarray(qb.float().numpy(), jnp.bfloat16)
+    jk, jv = (jnp.asarray(a.float().numpy(), jnp.bfloat16).transpose(
+        0, 2, 1, 3) for a in (knb, vnb))
+    want, _ = jax_common.cached_attention(
+        jq, jk, jv, tuple(jnp.asarray(c.numpy()) for c in cache), 90,
+        layer=1)
+    want = torch.from_numpy(np.array(want.astype(jnp.float32)))
+    limit = 0.05 * want.abs().max().item()
+    assert (got - want).abs().max().item() <= limit
+    kq, vq, ks, vs = cache
+    per_head = [s.amax(-1, keepdim=True).expand_as(s).contiguous()
+                for s in (ks, vs)]
+    for bad in ((kq, vq, ks, torch.ones_like(vs)), (kq, vq, *per_head)):
+        out = DA.decode_attention(qb, knb, vnb, bad, 1, 90).float()
+        assert (out - want).abs().max().item() > limit
+
+
+@pytest.mark.parametrize("T", [1, 3])
+def test_cached_attention_int8_matches_jax(T):
+    """The port's cached_attention on the int8 layout (decode at T=1, the
+    chunked plain arm at T=3) against the JAX package's: the quantized
+    payload equal, the output within 2e-5 (fp32)."""
+    from paddle_tpu_torch.models import _common as port_common
+    q, k, v = _np(2, T, 4, 64), _np(2, T, 2, 64, seed=1), \
+        _np(2, T, 2, 64, seed=2)
+    _, _, _, cache = _int8_inputs(4, 2, S=100, seed=5)
+    got, payload = port_common.cached_attention(
+        _t(q), _t(k), _t(v), cache, 61, layer=1)
+    want, jpay = jax_common.cached_attention(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+        tuple(jnp.asarray(c.numpy()) for c in cache), 61, layer=1)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    assert len(payload) == 4
+    for a, b in zip(payload, jpay):
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+
+
 def test_decode_ignores_positions_past_index():
     q, kn, vn, cache = _decode_inputs(4, 2, S=50)
     kc, vc = (_t(c) for c in cache)

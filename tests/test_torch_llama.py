@@ -262,3 +262,76 @@ def test_config_presets_match_jax():
         for f in sorted(shared):
             assert getattr(t, f) == getattr(j, f), (name, f)
         assert t.num_params() == j.num_params()
+
+
+# ------------------------------------------------------------ int8 cache
+
+def test_int8_cache_layout_matches_jax(pair):
+    """``init_cache(dtype=torch.int8)``: int8 k/v [L, B, Hkv, S, D] and
+    fp32 per-position scales [L, B, Hkv, S], as the JAX package's."""
+    jm, tm = pair
+    got, want = tm.init_cache(2, 16, torch.int8), jm.init_cache(2, 16,
+                                                                 jnp.int8)
+    assert len(got) == len(want) == 4
+    for a, b in zip(got, want):
+        assert tuple(a.shape) == b.shape and str(a.dtype)[6:] == str(b.dtype)
+
+
+def test_int8_prefill_and_decode_match_jax(pair):
+    """Prefill (flash over the raw chunk, the payload quantized) and three
+    decode steps (the int8 plain version) against the JAX package's, fp32:
+    logits within 2e-5, the int8 leaves equal and the scales within 1e-5
+    (the same absmax quantization of k/v that agree to fp32 rounding)."""
+    jm, tm = pair
+    ids = _ids(T=10, seed=6)
+    jl, jc = jm.forward_with_cache(jnp.asarray(ids),
+                                   jm.init_cache(2, 16, jnp.int8), 0)
+    tl, tc = tm.forward_with_cache(torch.from_numpy(ids),
+                                   tm.init_cache(2, 16, torch.int8), 0)
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **TOL)
+    for step in range(3):
+        tok = ids[:, step:step + 1]
+        jl, jc = jm.forward_with_cache(jnp.asarray(tok), jc, 10 + step)
+        tl, tc = tm.forward_with_cache(torch.from_numpy(tok), tc, 10 + step)
+        np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **TOL,
+                                   err_msg=f"decode step {step}")
+    for a, b in zip(tc[:2], jc[:2]):
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+    for a, b in zip(tc[2:], jc[2:]):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-5)
+
+
+def test_int8_generate_token_exact(pair):
+    jm, tm = pair
+    ids = _ids(seed=7)
+    want = np.asarray(jax_generation.generate(jm, jnp.asarray(ids), 9,
+                                              cache_dtype=jnp.int8))
+    got = tm.generate(torch.from_numpy(ids), 9,
+                      cache_dtype=torch.int8).numpy()
+    np.testing.assert_array_equal(got, want)
+
+
+def test_int8_generate_token_exact_gpt():
+    from paddle_tpu.models.gpt import GPTConfig as JaxGPTConfig
+    from paddle_tpu.models.gpt import GPTForCausalLM as JaxGPT
+    from paddle_tpu_torch.models import GPTConfig, GPTForCausalLM
+    jm = JaxGPT(JaxGPTConfig.tiny(), key=jax.random.PRNGKey(8))
+    tm = GPTForCausalLM(GPTConfig.tiny(), device="cpu")
+    bridge.load_jax_state_dict(tm, state_dict(jm))
+    ids = _ids(seed=8)
+    want = np.asarray(jax_generation.generate(jm, jnp.asarray(ids), 9,
+                                              cache_dtype=jnp.int8))
+    got = tm.generate(torch.from_numpy(ids), 9,
+                      cache_dtype=torch.int8).numpy()
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("dtype", [torch.int32, torch.uint8, torch.int16])
+def test_other_integer_cache_types_raise(pair, dtype):
+    """Only int8 has a quantized layout; another integer type would
+    truncate k/v on the write, so it raises, as in the JAX package."""
+    _, tm = pair
+    with pytest.raises(ValueError, match="unsupported"):
+        tm.init_cache(1, 8, dtype)
+    with pytest.raises(ValueError, match="unsupported"):
+        tm.generate(torch.from_numpy(_ids(B=1)), 2, cache_dtype=dtype)
