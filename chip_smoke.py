@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Eight phases; any failure exits non-zero and prints no result line.
+Fourteen phases; any failure exits non-zero and prints no result line.
 
 1. Card and build: requires CUDA, prints the card's name and power limit
    (``nvidia-smi``), builds every kernel source in ``paddle_tpu_torch/csrc``
@@ -62,6 +62,29 @@ Eight phases; any failure exits non-zero and prints no result line.
    per-step generator, the same masks in every run), B=32 × T=512 packed
    sequences without ``attention_mask``, 15% of positions labelled for
    the MLM loss, seeded sentence-order labels; as phase 7.
+9. mamba-0.2B ``generate`` (V=50304, E=1024, 24 layers, bf16), B=8, as
+   phase 3, with ``scan_probe`` and the bf16-state control.
+10. mamba-0.2B training with recompute, B=8 × T=2048, as phase 4.
+11. Llama-2-7B ``generate`` with the int8 KV cache on phase 3's model and
+   prompt, with the int8 decode probe.
+12. Llama-2-7B served through the ``GenerationEngine``, contiguous mode:
+   8 slots of 1024 positions, 16 greedy requests of 16-400 prompt tokens
+   and 16-64 new tokens arriving 50 ms apart, one cancelled mid-stream;
+   exact launch counts (the batched step a replayed CUDA graph that books
+   its captured launches: B9 L a step), tokens/s, time to first token per
+   request, peak memory, the step replayed at 8 slots; greedy tokens
+   against solo ``generate``; teacher-forced logits of the batched step
+   against solo forwards, within limits the bf16-attention control fails.
+13. The same model through the paged engine: pages of 16 tokens, the pool
+   8 × 64 pages, prefill in chunks of 256; 4 requests share a 256-token
+   prefix, one prompt has 900 tokens. Exact launch counts (B10 L a step,
+   B9 none), prefix hits, the pool balanced after the drain, the step as
+   a graph, B10's step against ``paged_gather`` + B9's; teacher-forced
+   logits against the contiguous step, the control failing.
+14. The dense loss at V <= 2048: ``LlamaConfig.tiny()`` (V=256, fp32)
+   training steps through ``build_train_step``: one B14 and one B15 a
+   step, against the plain run, with the loss's logits rounded to bf16 as
+   the control.
 
 Phase 2 also holds the fused head's three kernels (B11-B13) against their
 plain versions at the bench shape (N=8192, E=2048, V=32000), the 7B head
@@ -78,7 +101,15 @@ bias, x̂ in dw, db, the mean(w·g) term of dx taken out) must fail; flash
 attention at ERNIE's D=64 non-causal shape, where the plain version with
 a causal mask must fail. Each new case has its time, bound and library
 time (``F.layer_norm`` and its autograd backward, SDPA), and decode
-attention's row gets SDPA over the cache prefix plus the new k/v.
+attention's row gets SDPA over the cache prefix plus the new k/v. The
+selective scan (B17/B18) and the int8 decode (B9-int8) have their cases
+and planted faults; B14/B15 at the dense loss's shape, at N=8192 with
+V=1024 and 2048 in fp32 and bf16 and a ragged N through
+``F.softmax_with_cross_entropy`` (faults: the running maximum not
+rescaled, the last vocabulary block skipped, the one-hot term left out);
+B10 and per-slot B9 at the engine's step (8 slots, pages of 16, mixed
+positions; faults: the position pos unmasked, the page id off by one, the
+fresh token dropped).
 
 The last two lines of standard output are a JSON line of per-kernel
 numbers and ``{"ok": true, "device": {...}}``. A fuller report goes to
@@ -164,16 +195,23 @@ REPLACES = {
     "selective_scan": "paddle_tpu/ops/pallas/selective_scan.py:112",
     "selective_scan_bwd": "paddle_tpu/ops/pallas/selective_scan.py:210",
     "decode_attention_int8": "paddle_tpu/ops/pallas/decode_attention.py:211",
+    "softmax_xent_lse": "paddle_tpu/ops/pallas/softmax_xent.py:89",
+    "softmax_xent_dx": "paddle_tpu/ops/pallas/softmax_xent.py:111",
+    "paged_decode_attention":
+        "paddle_tpu/ops/pallas/paged_decode_attention.py:175",
 }
 # the path whose launches the JSON line reports for each kernel: decode
 # attention the serving path's, the fused head the bench path's,
-# LayerNorm GPT-3 1.3B training's, the rest the Llama training path's
+# LayerNorm GPT-3 1.3B training's, the scan Mamba training's, softmax
+# cross-entropy the dense loss's, paged decode attention the paged
+# engine's, the rest the Llama training path's
 TRAIN_KERNELS = ("rms_norm", "rms_norm_bwd", "rope", "flash_attention",
                  "flash_attention_bwd_dq", "flash_attention_bwd_dkdv",
                  "adamw")
 HEAD_KERNELS = ("linear_xent_fwd", "linear_xent_dh", "linear_xent_dw")
 LN_KERNELS = ("layer_norm", "layer_norm_bwd")
 SCAN_KERNELS = ("selective_scan", "selective_scan_bwd")
+XENT_KERNELS = ("softmax_xent_lse", "softmax_xent_dx")
 # Fused head against its plain versions. Both take the same fp32 logits
 # up to summation order, so the forward's fp32 lse and label logit agree
 # to ~1e-5: held at 1e-3 + 1e-4·|ref|. dH and dW round dlogits and the
@@ -272,10 +310,59 @@ SCAN_PROBE_LIMIT = 1e-4
 # bound on the kernel, and the probe ("decode int8 o") against the JAX
 # einsum arm's numerics (k and v dequantized to bf16) tells them apart.
 INT8_LOGIT_LIMITS = LOGIT_LIMITS
+# Phases 12-13 (Llama-2-7B served through the GenerationEngine): 8 slots of
+# 1024 positions, 16 greedy requests of 16-400 prompt tokens and 16-64 new
+# tokens from np.random.RandomState(0), arriving ENGINE_GAP_S apart, one
+# cancelled mid-stream; the paged engine on pages of 16 tokens, a pool of
+# slots × ceil(max_len / 16) pages, prefill in chunks of 256, with 4
+# requests sharing a 256-token prefix and one 900-token prompt. Teacher-
+# forced logits of the engine's batched step (8 slots, prefill and
+# TEACHER_STEPS steps) are held against solo forwards (contiguous) and
+# against the contiguous step (paged) within ENGINE_LOGIT_LIMITS, which
+# the bf16-attention control must fail.
+ENGINE_SLOTS, ENGINE_MAX_LEN, ENGINE_PAGE, ENGINE_CHUNK = 8, 1024, 16, 256
+ENGINE_REQUESTS, ENGINE_GAP_S = 16, 0.05
+ENGINE_LOGIT_LIMITS = LOGIT_LIMITS
+# Phase 2's B10 and per-slot B9 cases: the engine's decode step at 8 slots
+# with mixed fill positions (0, a partial last page, full pages, the
+# table's end), Llama-2-7B heads, a walk over ENGINE_CASE_LAYERS layers
+# of the pool so that the timed reads come from HBM.
+ENGINE_POS = (0, 5, 16, 17, 250, 511, 800, 1023)
+ENGINE_CASE_LAYERS = 8
+# B14/B15 against their plain versions: both compute in fp32 from the same
+# inputs (bf16 logits are exact in fp32), so lse and the fp32 gradient
+# agree to fp32 summation order (1e-5 of the largest value plus 1e-5 of
+# each), and a bf16 gradient to its own rounding (2^-8 of each value plus
+# 1e-3 of the largest). Planted faults must fail the same checks.
+XENT_TOL = {"lse": (1e-5, 1e-5), "dx float32": (1e-5, 1e-5),
+            "dx bfloat16": (1e-3, 2.0 ** -8)}
+# Phase 14: the dense loss at V <= 2048 (B14/B15) on LlamaConfig.tiny()
+# at head_dim 64 (V = 256, fp32), B × T = DENSE_B × DENSE_T, TRAIN_STEPS
+# steps of build_train_step. Kernel run against the plain run; the control
+# is the plain run with the loss's logits rounded to bf16 before B14/B15's
+# plain versions (a lower-precision loss; the bf16-attention control does
+# not apply at fp32, where its einsum arm computes in fp32). On the H100
+# (NVIDIA H100 80GB HBM3, 700 W) the kernel run read |Δloss| 0, gradients
+# 5.45e-7 relative L2, parameters 1.08e-7 max; the control 1.9e-6,
+# 1.15e-4 and 7.4e-6. Each limit sits between the two (the geometric mean
+# where the kernels read above 0), and the control must fail every one.
+DENSE_B, DENSE_T = 8, 128
+DENSE_LIMITS = {"loss_abs": ("<=", 4e-7), "grad_rel_l2": ("<=", 8e-6),
+                "param_max_abs": ("<=", 9e-7)}
+DENSE_SANITY = {"grad_min_cosine": (">=", 0.99999),
+                "grad_norm_rel": ("<=", 1e-5)}
+
+
+LOG_PATH = os.path.join("chiprun_out", "chip_smoke.log")
 
 
 def log(*a):
+    """Print, and keep the line in chiprun_out/chip_smoke.log (the whole
+    run's log, which the end of standard output may not hold)."""
     print(*a, flush=True)
+    os.makedirs("chiprun_out", exist_ok=True)
+    with open(LOG_PATH, "a") as f:
+        print(*a, file=f)
 
 
 def time_ms(fn, reps: int = 7, inner: int = 20) -> float:
@@ -382,17 +469,26 @@ def einsum_arm_attention(q, k, v, *, causal=True, scale=None,
 
 
 def einsum_arm_decode(q, k_new, v_new, cache, layer, index, *, scale=None):
-    """The JAX einsum decode arm's bf16 numerics (_common.py:122-137)."""
+    """The JAX einsum decode arm's bf16 numerics (_common.py:122-137), at
+    one index for the batch or at a per-row [B] index (the positions from
+    each row's index on masked)."""
     Bq, T, Hq, D = q.shape
     Hkv = k_new.shape[1]
-    kc = cache[0][layer, :, :, :index]
-    vc = cache[1][layer, :, :, :index]
+    per_row = isinstance(index, torch.Tensor)
+    stop = None if per_row else index
+    kc = cache[0][layer, :, :, :stop]
+    vc = cache[1][layer, :, :, :stop]
+    S = kc.shape[2]
     qh = q.permute(0, 2, 1, 3).reshape(Bq, Hkv, Hq // Hkv, T, D)
     s_c = (torch.einsum("bkgtd,bksd->bkgts", qh, kc) * scale).float()
+    if per_row:
+        keep = (torch.arange(S, device=q.device)[None]
+                < index.long()[:, None])
+        s_c = s_c.masked_fill(~keep[:, None, None, None], -math.inf)
     s_n = (torch.einsum("bkgtd,bkud->bkgtu", qh, k_new) * scale).float()
     p = torch.softmax(torch.cat([s_c, s_n], dim=-1), dim=-1).to(q.dtype)
-    out = (torch.einsum("bkgts,bksd->bkgtd", p[..., :index], vc)
-           + torch.einsum("bkgtu,bkud->bkgtd", p[..., index:], v_new))
+    out = (torch.einsum("bkgts,bksd->bkgtd", p[..., :S], vc)
+           + torch.einsum("bkgtu,bkud->bkgtd", p[..., S:], v_new))
     return out.reshape(Bq, Hq, T, D).permute(0, 2, 1, 3)
 
 
@@ -403,9 +499,10 @@ def einsum_arm_decode_int8(q, k_new, v_new, cache, layer, index, *,
     float arm's bf16 numerics."""
     k_q, v_q, k_s, v_s = cache
     dt = q.dtype
-    kc = k_q[layer, :, :, :index].to(dt) * k_s[layer, :, :, :index].to(
+    stop = None if isinstance(index, torch.Tensor) else index
+    kc = k_q[layer, :, :, :stop].to(dt) * k_s[layer, :, :, :stop].to(
         dt)[..., None]
-    vc = v_q[layer, :, :, :index].to(dt) * v_s[layer, :, :, :index].to(
+    vc = v_q[layer, :, :, :stop].to(dt) * v_s[layer, :, :, :stop].to(
         dt)[..., None]
     return einsum_arm_decode(q, k_new, v_new, (kc[None], vc[None]), 0, index,
                              scale=scale)
@@ -1109,6 +1206,357 @@ def int8_faults(cache):
             "scale per head": (kq, vq, *per_head)}
 
 
+def xent_mismatch(name):
+    """The check of B14 (``"lse"``) or of the loss's gradient (``"dx
+    float32"``, ``"dx bfloat16"``): the largest ratio of a difference to
+    ``XENT_TOL[name]`` = (share of the largest value, share of each value)
+    over each tensor; 1 or less means agreement."""
+    frac, rtol = XENT_TOL[name]
+
+    def check(got, want):
+        if isinstance(got, torch.Tensor):
+            got, want = (got,), (want,)
+        worst = 0.0
+        for a, b in zip(got, want, strict=True):
+            wf = b.float()
+            tol = (frac * wf.abs().max() + rtol * wf.abs()).clamp_min(
+                torch.finfo(torch.float32).tiny)
+            r = ((a.float() - wf).abs() / tol).max().item()
+            worst = max(worst, r if math.isfinite(r) else math.inf)
+        return worst
+    return check
+
+
+def xent_grad(x, labels, g):
+    """dlogits of the per-row softmax cross-entropy (B14 forward, B15
+    backward and the one-hot term outside it) for the output gradient
+    ``g``: the kernels on CUDA tensors, the plain versions inside
+    ``force_reference()``."""
+    from paddle_tpu_torch.kernels import softmax_xent as SX
+    leaf = x.detach().requires_grad_()
+    with torch.enable_grad():
+        loss = SX.softmax_cross_entropy(leaf, labels)
+        return torch.autograd.grad(loss, leaf, g)[0]
+
+
+def xent_faults(x, labels, g):
+    """B14/B15's plain versions with one piece wrong: the log-sum-exp with
+    the running maximum not rescaled (each 256-wide vocabulary block's
+    sum added against the maximum so far, the earlier sum never scaled
+    down) and with the last vocabulary block skipped; the loss's gradient
+    without the −g one-hot term. Returns ``(lse faults, dlogits
+    faults)``."""
+    from paddle_tpu_torch.kernels import softmax_xent as SX
+    xf = x.float()
+    m = torch.full((x.shape[0],), -math.inf, device=x.device)
+    l = torch.zeros(x.shape[0], device=x.device)
+    for off in range(0, x.shape[1], SX.BLOCK_V):
+        blk = xf[:, off:off + SX.BLOCK_V]
+        m = torch.maximum(m, blk.amax(1))
+        l = l + torch.exp(blk - m[:, None]).sum(1)
+    lse = SX.lse_reference(x)
+    return ({"running maximum not rescaled": m + torch.log(l),
+             "last vocabulary block skipped":
+                 SX.lse_reference(x[:, :-SX.BLOCK_V])},
+            {"one-hot term left out": SX.dx_reference(x, lse, g)})
+
+
+def paged_faults(q, kn, vn, pool, table, pos, layer):
+    """B10's plain version with one piece wrong: position ``pos[b]`` read
+    too (the mask one position late), every page id one higher, the
+    fresh token left out of the softmax."""
+    from paddle_tpu_torch.kernels import paged_decode_attention as PDA
+    plain = PDA.paged_decode_attention_reference
+    B, _, Hq, D = q.shape
+    kc, vc = PDA.gather_layer(pool, table, layer)       # [1, B, Hkv, S, D]
+    Hkv, S = kc.shape[2], kc.shape[3]
+    qh = q.float().reshape(B, Hkv, Hq // Hkv, D)
+    s = torch.einsum("bkgd,bksd->bkgs", qh, kc[0].float()) / math.sqrt(D)
+    keep = torch.arange(S, device=q.device)[None] < pos.long()[:, None]
+    s = s.masked_fill(~keep[:, None, None], -math.inf)
+    no_fresh = torch.einsum("bkgs,bksd->bkgd", torch.softmax(s, -1),
+                            vc[0].float()).reshape(B, 1, Hq, D).to(q.dtype)
+    N = pool[0].shape[0] - 1
+    return {"position pos unmasked": plain(q, kn, vn, pool, table, pos + 1,
+                                           layer),
+            "page id off by one": plain(q, kn, vn, pool,
+                                        (table + 1).clamp(max=N), pos,
+                                        layer),
+            "fresh token dropped": no_fresh}
+
+
+def engine_requests(vocab: int):
+    """Phase 12's traffic: ENGINE_REQUESTS prompts of 16-400 tokens and
+    16-64 new tokens each, from ``np.random.RandomState(0)``."""
+    rs = np.random.RandomState(0)
+    return [(rs.randint(0, vocab, (int(rs.randint(16, 401)),)).astype(
+        np.int32), int(rs.randint(16, 65))) for _ in range(ENGINE_REQUESTS)]
+
+
+def paged_requests(vocab: int):
+    """Phase 13's traffic: 4 requests sharing a 256-token prefix (tails of
+    8-40 tokens), a 900-token prompt and 3 more of 16-200 tokens, 16-64
+    new tokens each (16 for the long one), from
+    ``np.random.RandomState(13)``; the sharers interleaved with the
+    others, so that the first one's prefill ends before the next
+    arrives."""
+    rs = np.random.RandomState(13)
+    prefix = rs.randint(0, vocab, (256,)).astype(np.int32)
+    shared = [np.concatenate([prefix, rs.randint(
+        0, vocab, (int(rs.randint(8, 41)),)).astype(np.int32)])
+        for _ in range(4)]
+    others = [rs.randint(0, vocab, (900,)).astype(np.int32)] + [
+        rs.randint(0, vocab, (int(rs.randint(16, 201)),)).astype(np.int32)
+        for _ in range(3)]
+    prompts = [p for pair in zip(shared, others) for p in pair]
+    return [(p, 16 if len(p) == 900 else int(rs.randint(16, 65)))
+            for p in prompts]
+
+
+def serve_engine(engine, requests, cancel: int | None = None):
+    """Drive ``engine`` with ``requests`` [(prompt, new tokens)]: each
+    started ENGINE_GAP_S after the one before by one thread and consumed
+    by a thread of its own (polls of 0.5 s at most; every wait bounded);
+    request ``cancel`` is cancelled once it has streamed 8 tokens.
+    Returns per request its tokens, error, time to first token and
+    end time (s), and the wall time of the whole run."""
+    import threading
+    out = [None] * len(requests)
+    t0 = time.perf_counter()
+
+    def client(i, prompt, n):
+        ts = time.perf_counter()
+        gid = engine.start(prompt, n)
+        toks, first, err = [], None, None
+        deadline = ts + 600
+        while time.perf_counter() < deadline:
+            doc = engine.poll(gid, start=len(toks), wait_s=0.5)
+            toks += doc["tokens"]
+            if toks and first is None:
+                first = time.perf_counter() - ts
+            if i == cancel and len(toks) >= 8 and not doc["done"]:
+                engine.cancel(gid)
+                err = "cancelled"
+                break
+            if doc["done"]:
+                err = doc["error"]
+                break
+        else:
+            err = "timed out"
+        out[i] = {"tokens": toks, "error": err, "ttft_s": first,
+                  "end_s": time.perf_counter() - t0, "prompt": len(prompt),
+                  "new_tokens": n}
+
+    threads = []
+    for i, (prompt, n) in enumerate(requests):
+        th = threading.Thread(target=client, args=(i, prompt, n))
+        th.start()
+        threads.append(th)
+        time.sleep(ENGINE_GAP_S)
+    for th in threads:
+        th.join(timeout=660)
+    return out, time.perf_counter() - t0
+
+
+def engine_expected(engine, L: int, paged: bool) -> dict:
+    """The launches an engine's run implies: per prefill forward RMSNorm
+    2L + 1 and RoPE 2L, flash L where it ran at index 0; per batched step
+    (each replay, and the warm-up before the capture) RMSNorm 2L + 1,
+    RoPE 2L and L of the step's attention kernel (B10 paged, B9 else)."""
+    st = engine.stats()
+    fwd = st["prefill_calls"] + st["decode_steps"] + 1
+    return {"rms_norm": (2 * L + 1) * fwd, "rope": 2 * L * fwd,
+            "flash_attention": L * st["prefill_calls_fresh"],
+            ("paged_decode_attention" if paged else "decode_attention"):
+                L * (st["decode_steps"] + 1)}
+
+
+def time_replay(engine, reps: int = 7, inner: int = 10) -> float:
+    """Device time of one replay of the engine's captured decode step
+    (CUDA events over ``inner`` replays, median of ``reps``)."""
+    samples = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(inner):
+            engine.replay()
+        end.record()
+        end.synchronize()
+        samples.append(start.elapsed_time(end) / inner)
+    return statistics.median(samples)
+
+
+def set_step_state(engine, pos, tables=None):
+    """The engine's static step buffers at 8 active slots: positions
+    ``pos``, tokens 1, and (paged) page ``tables`` [slots, M]."""
+    engine._pos_buf.copy_(torch.tensor(pos, dtype=torch.int32))
+    engine._tok_buf.fill_(1)
+    engine._active_buf.fill_(True)
+    if tables is not None:
+        engine._pt_buf.copy_(torch.as_tensor(tables, dtype=torch.int32))
+
+
+@torch.no_grad()
+def engine_teacher(model, seqs, mode: str, steps: int = TEACHER_STEPS,
+                   chunk: int | None = None):
+    """Teacher-forced logits [len(seqs), steps + 1, V] (fp32) of sequences
+    ``seqs`` [(prompt, continuation)] run as the engine runs them:
+    ``"solo"`` one sequence at a time as ``generate`` does (B = 1, int
+    index); ``"contiguous"`` the slots' prefills right-padded to their
+    buckets into the stacked cache, then ``steps`` batched steps at the
+    slots' own positions; ``"paged"`` the prefills through the pool, then
+    the batched steps over ``PagedKV``. ``chunk`` (the paged engine's
+    ``prefill_chunk``; None: the whole prompt) cuts the prefills of both
+    batched modes into chunks, each after the first at its index through
+    the chunk arm. Step i feeds each sequence's continuation token i."""
+    from paddle_tpu_torch.models._common import PagedKV
+    from paddle_tpu_torch.models.generation import (init_paged_cache,
+                                                    paged_gather,
+                                                    paged_scatter)
+    dev = model.device
+    S = len(seqs)
+    out = [[] for _ in range(S)]
+
+    def ids(a):
+        return torch.as_tensor(np.asarray(a, np.int64), device=dev)[None]
+
+    def bucket(n, cap):
+        b = 8
+        while b < n:
+            b *= 2
+        return min(b, cap)
+
+    if mode == "solo":
+        for s, (p, c) in enumerate(seqs):
+            cache = model.init_cache(1, len(p) + steps)
+            logits, _ = model.forward_with_cache(ids(p), cache, 0)
+            out[s].append(logits[0, -1].float())
+            for i in range(steps):
+                logits, _ = model.forward_with_cache(ids(c[i:i + 1]), cache,
+                                                     len(p) + i)
+                out[s].append(logits[0, -1].float())
+        return torch.stack([torch.stack(o) for o in out])
+    P, M = ENGINE_PAGE, ENGINE_MAX_LEN // ENGINE_PAGE
+    paged = mode == "paged"
+    if paged:
+        cache = init_paged_cache(model.init_cache(1, ENGINE_MAX_LEN), S * M, P)
+        table = torch.arange(1, S * M + 1, dtype=torch.int32,
+                             device=dev).reshape(S, M)
+    else:
+        cache = model.init_cache(S, ENGINE_MAX_LEN)
+    for s, (p, _) in enumerate(seqs):
+        step = chunk or len(p)
+        for a in range(0, len(p), step):
+            b = min(len(p), a + step)
+            padded = np.zeros(min(bucket(b - a, ENGINE_MAX_LEN),
+                                  ENGINE_MAX_LEN - a), np.int64)
+            padded[:b - a] = p[a:b]
+            if paged:
+                view = paged_gather(cache, table[s])
+                logits, view = model.forward_with_cache(ids(padded), view, a)
+                paged_scatter(cache, table[s], tuple(
+                    c[:, :, :, a:a + len(padded)] for c in view), a, P,
+                    length=b - a)
+                del view
+            else:
+                logits, _ = model.forward_with_cache(
+                    ids(padded), tuple(c[:, s:s + 1] for c in cache), a)
+        out[s].append(logits[0, len(p) - a - 1].float())
+    if paged:
+        cache = PagedKV(cache, table,
+                        torch.ones(S, dtype=torch.bool, device=dev))
+    pos = torch.tensor([len(p) for p, _ in seqs], dtype=torch.int32,
+                       device=dev)
+    for i in range(steps):
+        tok = torch.tensor([c[i] for _, c in seqs], device=dev)[:, None]
+        logits, _ = model.forward_with_cache(tok, cache, pos)
+        for s in range(S):
+            out[s].append(logits[s, -1].float())
+        pos += 1
+    return torch.stack([torch.stack(o) for o in out])
+
+
+def greedy_agreement(engine_out, solo):
+    """Share of a run's greedy tokens equal to solo ``generate``'s, and the
+    first position where each stream diverges (None: never)."""
+    equal = total = 0
+    first = []
+    for o, ref in zip(engine_out, solo):
+        toks = o["tokens"]
+        same = [int(a == b) for a, b in zip(toks, ref)]
+        equal += sum(same)
+        total += len(same)
+        first.append(next((i for i, x in enumerate(same) if not x), None))
+    return {"equal_share": equal / max(total, 1), "first_divergence": first}
+
+
+def engine_report(key, title, engine, out, wall_s, launches, expected,
+                  run):
+    """Check and log one engine run: exact launch counts, every request
+    finished as asked (the cancelled one cancelled), tokens in range."""
+    failures = run.failures
+    tokens = sum(len(o["tokens"]) for o in out)
+    log(f"{key} launches {launches} expected {expected}")
+    if launches != expected:
+        failures.append(f"{key} launch counts {launches} != {expected}")
+    for i, o in enumerate(out):
+        ok = (o["error"] is None and len(o["tokens"]) == o["new_tokens"]) \
+            or (o["error"] == "cancelled" and len(o["tokens"]) >= 8)
+        if not ok or not all(0 <= t < run.vocab for t in o["tokens"]):
+            failures.append(f"{key}: request {i} ended {o['error']} with "
+                            f"{len(o['tokens'])} of {o['new_tokens']} "
+                            "tokens")
+    st = engine.stats()
+    rep = run.report[key] = {
+        "model": f"{title} (random weights, seed {SEED})",
+        "requests": [{k: o[k] for k in ("prompt", "new_tokens", "error",
+                                        "ttft_s", "end_s")} for o in out],
+        "tokens": tokens, "wall_s": wall_s, "tokens_per_s": tokens / wall_s,
+        "ttft_s": [o["ttft_s"] for o in out], "stats": st,
+        "launches": launches, "expected_launches": expected,
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "card": run.card}
+    log(f"{key} ({title}) on {run.card}: {len(out)} requests, {tokens} "
+        f"tokens in {wall_s:.2f} s ({tokens / wall_s:.1f} tokens/s), "
+        f"{st['decode_steps']} batched steps, {st['prefill_calls']} prefill "
+        f"forwards, TTFT {[round(o['ttft_s'] or -1, 3) for o in out]} s, "
+        f"peak {rep['peak_mem_gb']:.2f} GB")
+    return rep
+
+
+def engine_logits_check(key, rep, got, want, control, limits, run):
+    """Teacher-forced logits ``got`` against ``want`` within ``limits``,
+    which ``control`` (the bf16-attention run against ``want``) must
+    fail."""
+    res, ctrl = compare_logits(got, want), compare_logits(control, want)
+    rep["logits"] = {"engine_vs_reference": res, "control": ctrl,
+                     "limits": dict(zip(("max_abs", "mean_abs",
+                                         "min_cosine"), limits))}
+    log(f"{key} teacher-forced logits: {res}; bf16-attention control: "
+        f"{ctrl}; limits {limits}")
+    if not logits_within(res, limits):
+        run.failures.append(f"{key}: logits disagree: {rep['logits']}")
+    if logits_within(ctrl, limits):
+        run.failures.append(f"{key}: the logits check cannot tell the "
+                            f"engine from bf16 attention: {ctrl}")
+
+
+@contextlib.contextmanager
+def bf16_xent():
+    """The dense-loss control: the loss's logits rounded to bf16 before
+    B14/B15's plain versions (a lower-precision loss)."""
+    from paddle_tpu_torch.kernels import softmax_xent as SX
+    saved = SX.lse_reference, SX.dx_reference
+    SX.lse_reference = lambda x: saved[0](x.to(torch.bfloat16))
+    SX.dx_reference = lambda x, l, g: saved[1](
+        x.to(torch.bfloat16), l, g).to(x.dtype)
+    try:
+        yield
+    finally:
+        SX.lse_reference, SX.dx_reference = saved
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -1117,8 +1565,11 @@ def main() -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60, check=True)
     card = smi.stdout.strip().splitlines()[0]
+    if os.path.exists(LOG_PATH):
+        os.remove(LOG_PATH)
     log(f"card: {card}")
 
+    from paddle_tpu_torch.core.monitor import get_stat
     from paddle_tpu_torch.device import make_generator
     from paddle_tpu_torch.kernels import _support
     from paddle_tpu_torch.kernels import adamw as A
@@ -1163,12 +1614,13 @@ def main() -> int:
     def case(kernel, geometry, shape, fn, ref, nbytes, ops, library=None,
              timed=False, timer=time_ms, kernel_only=None, mismatch=None,
              tol=f"{KERNEL_ATOL}+{KERNEL_RTOL}*|ref|", library_timer=None,
-             ops_rate=BF16_OPS_PER_S):
+             ops_rate=BF16_OPS_PER_S, plain_only=None):
         """``fn`` (the kernel's wrapper) and ``ref`` (its plain version)
         return a tensor or a tuple of them, compared pairwise within
         ``KERNEL_ATOL + KERNEL_RTOL·|ref|``, or by ``mismatch(got, want)``
         (agreement at 1 or less) where given. ``kernel_only``, where
-        given, is what is timed as the kernel instead of ``fn``;
+        given, is what is timed as the kernel instead of ``fn``, and
+        ``plain_only`` as the plain version instead of ``ref``;
         ``library_timer`` (default ``timer``) times ``library``; the
         operations' bound is taken at ``ops_rate``."""
         got, want = fn(), ref()
@@ -1192,7 +1644,8 @@ def main() -> int:
         del got, want
         if timed:
             b_ms, b_by = bound(nbytes, ops, ops_rate)
-            row.update(ms=timer(kernel_only or fn), plain_ms=timer(ref),
+            row.update(ms=timer(kernel_only or fn),
+                       plain_ms=timer(plain_only or ref),
                        bound_ms=b_ms, bound_by=b_by,
                        library_ms=None if library is None
                        else (library_timer or timer)(library))
@@ -1828,6 +2281,214 @@ def main() -> int:
             del kv, want, bad
     del cache8, qd, kn, vn
     torch.cuda.empty_cache()
+    # softmax cross-entropy (B14, B15): the dense loss's shape in phase 14
+    # (fp32, V = 256, DENSE_B·(DENSE_T - 1) rows padded to the row block,
+    # timed first: the JSON line's row), the JAX source's dispatch shapes
+    # (softmax_xent.py:34-37: N = 8192, V = 1024 and 2048, fp32 and bf16)
+    # and, through F.softmax_with_cross_entropy, a ragged N whose rows are
+    # padded. B14 is held by xent_mismatch("lse"), the loss's gradient
+    # (B15 and the one-hot term outside it) by xent_mismatch("dx ...");
+    # at N = 8192, V = 2048, fp32 the planted faults must fail the same
+    # checks. Yardsticks: torch.logsumexp (B14) and softmax·g (B15).
+    from paddle_tpu_torch.kernels import softmax_xent as SX
+    from paddle_tpu_torch.nn import functional as TF
+    gen14 = make_generator(SEED + 14, dev)
+
+    def plain(fn):
+        def run_plain():
+            with _support.force_reference():
+                return fn()
+        return run_plain
+
+    n_dense = DENSE_B * (DENSE_T - 1)
+    n_dense += SX.row_pad(n_dense)
+    for n, v, dt in ((n_dense, 256, torch.float32),
+                     (8192, 1024, torch.float32), (8192, 2048, torch.float32),
+                     (8192, 1024, bf16), (8192, 2048, bf16)):
+        x = (torch.randn(n, v, generator=gen14, device=dev) * 3).to(dt)
+        lab = torch.randint(0, v, (n,), generator=gen14, device=dev)
+        g = torch.full((n,), 1.0 / n, device=dev)   # the mean's cotangent
+        lse = SX.lse_reference(x)
+        esz = x.element_size()
+        shape = f"[{n},{v}] {str(dt).split('.')[-1]}"
+        case("softmax_xent_lse", "xent", shape, lambda x=x: SX.lse(x),
+             lambda x=x: SX.lse_reference(x), n * v * esz + 4 * n,
+             2 * n * v, lambda x=x: torch.logsumexp(x, dim=1), timed=True,
+             mismatch=xent_mismatch("lse"), tol="xent lse",
+             ops_rate=FP32_OPS_PER_S)
+        name = f"dx {str(dt).split('.')[-1]}"
+        case("softmax_xent_dx", "xent", shape,
+             lambda x=x, lab=lab, g=g: xent_grad(x, lab, g),
+             plain(lambda x=x, lab=lab, g=g: xent_grad(x, lab, g)),
+             2 * n * v * esz + 8 * n, 3 * n * v,
+             lambda x=x, g=g: torch.softmax(x, dim=1) * g[:, None],
+             timed=True, mismatch=xent_mismatch(name), tol=f"xent {name}",
+             kernel_only=lambda x=x, l=lse, g=g: SX.dx(x, l, g),
+             plain_only=lambda x=x, l=lse, g=g: SX.dx_reference(x, l, g),
+             ops_rate=FP32_OPS_PER_S)
+        if n == 8192 and v == 2048 and dt == torch.float32:
+            lse_f, dx_f = xent_faults(x, lab, g)
+            want_dx = plain(lambda: xent_grad(x, lab, g))()
+            faults = {}
+            for fault, bad in lse_f.items():
+                faults[fault] = xent_mismatch("lse")(bad, lse)
+            for fault, bad in dx_f.items():
+                faults[fault] = xent_mismatch(name)(bad, want_dx)
+            rows[-1]["faults_mismatch"] = faults
+            log(f"    softmax_xent planted faults' mismatch (must exceed "
+                f"1): {faults}")
+            for fault, m in faults.items():
+                if not m > 1.0:
+                    failures.append(f"softmax_xent: the planted fault "
+                                    f"'{fault}' passes the check ({m})")
+            del want_dx
+        del x, lab, g, lse
+    # the ragged N: rows padded to the row block, loss and gradient
+    # through F.softmax_with_cross_entropy (ignore_index rows too)
+    for v, dt in ((1024, bf16), (2048, torch.float32)):
+        n = 8190
+        x = (torch.randn(n, v, generator=gen14, device=dev) * 3).to(dt)
+        lab = torch.randint(0, v, (n,), generator=gen14, device=dev)
+        lab[::97] = -100
+
+        def loss_and_grad(x=x, lab=lab):
+            leaf = x.detach().requires_grad_()
+            with torch.enable_grad():
+                loss = TF.softmax_with_cross_entropy(leaf, lab)
+                return loss, torch.autograd.grad(loss.float().mean(),
+                                                 leaf)[0]
+        name = f"dx {str(dt).split('.')[-1]}"
+
+        def both(got, want, name=name):
+            return max(xent_mismatch(name)(got[1], want[1]),
+                       (got[0].float() - want[0].float()).abs().max().item()
+                       / (1e-4 + (2.0 ** -7 if got[0].dtype == bf16
+                                  else 1e-5) * want[0].float().abs().max()
+                          .item()))
+        case("softmax_xent_dx", "xent",
+             f"F.softmax_with_cross_entropy [{n},{v}] "
+             f"{str(dt).split('.')[-1]}", loss_and_grad,
+             plain(loss_and_grad), 0, 0, mismatch=both,
+             tol=f"xent {name}, loss 1e-4+rel")
+        del x, lab
+    torch.cuda.empty_cache()
+
+    # decode attention over the paged pool (B10) and per slot over the
+    # stacked cache (per-slot B9, float and int8) at the engine's decode
+    # step: 8 slots at ENGINE_POS (0, a partial last page, full pages, the
+    # table's end), Llama-2-7B heads, pages of 16 tokens, the pool
+    # slots × 64 pages with each slot's table a run of a random
+    # permutation of them (pages recycled across slots in no order), a
+    # walk over ENGINE_CASE_LAYERS layers. B10 against its plain version
+    # (paged_gather, then the stacked decode's plain version), held at
+    # KERNEL_ATOL + KERNEL_RTOL·|ref|, with planted faults that must fail
+    # the check, and timed beside SDPA over the gathered prefix plus the
+    # new k/v (gathered outside the timed region, one call with a mask)
+    # and beside the gather + B9 it replaces. Per-slot B9 against the
+    # scalar form run slot by slot (bit-equal expected: the same kernel
+    # arithmetic at another batch offset) and its plain version.
+    from paddle_tpu_torch.kernels import paged_decode_attention as PDA
+    from paddle_tpu_torch.models.generation import paged_gather
+    gen10 = make_generator(SEED + 10, dev)
+    SL, P, Lw, H, D = ENGINE_SLOTS, ENGINE_PAGE, ENGINE_CASE_LAYERS, 32, 128
+    M = ENGINE_MAX_LEN // P
+    pool = tuple(torch.randn(SL * M + 1, Lw, H, P, D, generator=gen10,
+                             device=dev).to(bf16) for _ in range(2))
+    perm = torch.randperm(SL * M, generator=gen10, device=dev) + 1
+    table = perm.reshape(SL, M).to(torch.int32).contiguous()
+    pos = torch.tensor(ENGINE_POS, dtype=torch.int32, device=dev)
+    qd = torch.randn(SL, 1, H, D, generator=gen10, device=dev).to(bf16)
+    kn, vn = (torch.randn(SL, H, 1, D, generator=gen10, device=dev).to(bf16)
+              for _ in range(2))
+    fill = sum(ENGINE_POS)
+    shape = f"pool[{SL * M + 1},{Lw},{H},{P},{D}] {SL} slots pos {fill}"
+    keep = (torch.arange(M * P + 1, device=dev)[None]
+            < pos.long()[:, None] + 1)
+    keep[:, -1] = True                             # the fresh token
+    kv = []
+    for lay in range(Lw):
+        kc, vc = PDA.gather_layer(pool, table, lay)
+        kv.append((torch.cat([kc[0], kn], 2), torch.cat([vc[0], vn], 2)))
+    qs = qd.transpose(1, 2)
+    mask = keep[:, None, None]
+    case("paged_decode_attention", "7B", shape,
+         layer_walk(lambda lay: PDA.paged_decode_attention(
+             qd, kn, vn, pool, table, pos, lay), Lw),
+         layer_walk(lambda lay: PDA.paged_decode_attention_reference(
+             qd, kn, vn, pool, table, pos, lay), Lw),
+         (2 * H * fill * D + 2 * qd.numel() + 2 * kn.numel()) * 2
+         + table.numel() * 4 + SL * 4, 4 * H * D * (fill + SL),
+         layer_walk(lambda lay: sdpa(qs, *kv[lay], attn_mask=mask), Lw),
+         timed=True)
+    del kv
+    want = PDA.paged_decode_attention_reference(qd, kn, vn, pool, table,
+                                                pos, 0)
+    faults = {}
+    for fault, bad in paged_faults(qd, kn, vn, pool, table, pos, 0).items():
+        diff = (bad.float() - want.float()).abs()
+        faults[fault] = diff.max().item()
+        if bool((diff <= KERNEL_ATOL + KERNEL_RTOL
+                 * want.float().abs()).all()):
+            failures.append(f"paged_decode_attention: the planted fault "
+                            f"'{fault}' passes the check")
+    rows[-1]["faults_max_abs"] = faults
+    # the step as the JAX engine runs it: the slots' pages gathered into a
+    # stacked cache, then the per-slot decode kernel
+    def gather_then_b9(lay):
+        view = PDA.gather_layer(pool, table, lay)
+        return DA.decode_attention(qd, kn, vn, view, 0, pos)
+    got_b10 = PDA.paged_decode_attention(qd, kn, vn, pool, table, pos, 0)
+    rows[-1]["gather_b9_ms"] = time_ms(layer_walk(gather_then_b9, Lw))
+    rows[-1]["gather_b9_max_abs_diff"] = (
+        gather_then_b9(0).float() - got_b10.float()).abs().max().item()
+    log(f"    paged_decode_attention planted faults' max abs error (must "
+        f"fail the check): {faults}; paged_gather + per-slot B9 "
+        f"{rows[-1]['gather_b9_ms']:.4f} ms, max abs difference from B10 "
+        f"{rows[-1]['gather_b9_max_abs_diff']:.3e}")
+    del want, got_b10
+    # per-slot B9 over the stacked cache of the same positions (S = 1024),
+    # float and int8
+    kc = torch.randn(Lw, SL, H, ENGINE_MAX_LEN, D, generator=gen10,
+                     device=dev).to(bf16)
+    vc = torch.randn(Lw, SL, H, ENGINE_MAX_LEN, D, generator=gen10,
+                     device=dev).to(bf16)
+    (kq, ks), (vq, vs) = (_quant_chunk(c.reshape(Lw * SL, H, -1, D))
+                          for c in (kc, vc))
+    caches = {"decode_attention": (kc, vc),
+              "decode_attention_int8": (
+                  kq.reshape(Lw, SL, H, -1, D), vq.reshape(Lw, SL, H, -1, D),
+                  ks.reshape(Lw, SL, H, -1), vs.reshape(Lw, SL, H, -1))}
+    del kq, vq, ks, vs
+    for name, cache in caches.items():
+        plain_fn = (DA.decode_attention_int8_reference if len(cache) == 4
+                    else DA.decode_attention_reference)
+
+        def slot_by_slot(lay, cache=cache):
+            return torch.cat([DA.decode_attention(
+                qd[b:b + 1], kn[b:b + 1], vn[b:b + 1],
+                tuple(c[:, b:b + 1].contiguous() for c in cache), lay,
+                int(ENGINE_POS[b])) for b in range(SL)])
+        got = DA.decode_attention(qd, kn, vn, cache, 1, pos)
+        per_row = slot_by_slot(1)
+        same = bool(torch.equal(got, per_row))
+        case(name, "7B", f"per slot, {SL} slots pos {fill} "
+             f"S {ENGINE_MAX_LEN}",
+             layer_walk(lambda lay, cache=cache: DA.decode_attention(
+                 qd, kn, vn, cache, lay, pos), Lw),
+             layer_walk(lambda lay, cache=cache, plain_fn=plain_fn:
+                        plain_fn(qd, kn, vn, cache, lay, pos), Lw), 0, 0)
+        rows[-1].update(equal_to_scalar_form_slot_by_slot=same,
+                        per_slot_ms=time_ms(layer_walk(
+                            lambda lay, cache=cache: DA.decode_attention(
+                                qd, kn, vn, cache, lay, pos), Lw)))
+        log(f"    {name} per slot: equal to the scalar form slot by slot: "
+            f"{same}; {rows[-1]['per_slot_ms']:.4f} ms")
+        if not same:
+            failures.append(f"{name}: the per-slot index differs from the "
+                            "scalar form run slot by slot")
+        del got, per_row
+    del caches, kc, vc, pool, table, qd, kn, vn
+    torch.cuda.empty_cache()
     report["kernel_cases"] = rows
     torch.cuda.empty_cache()
 
@@ -1860,6 +2521,168 @@ def main() -> int:
     report["int8_serving"]["greedy_tokens_equal_to_float_cache"] = same
     log(f"int8_serving: {same:.4f} of the greedy tokens equal phase 3's "
         "float-cache tokens (recorded)")
+    # ------------------- 12. Llama-2-7B through the GenerationEngine
+    # phase 3's model, contiguous mode: 8 slots of 1024 positions, 16
+    # greedy requests arriving ENGINE_GAP_S apart, one cancelled mid-stream;
+    # the batched decode step a replayed CUDA graph
+    from paddle_tpu_torch.serving import GenerationEngine
+    run.vocab = cfg.vocab_size
+    requests = engine_requests(cfg.vocab_size)
+    t = time.perf_counter()
+    with GenerationEngine(model, slots=ENGINE_SLOTS,
+                          max_len=ENGINE_MAX_LEN, queue_max=0,
+                          ttl_s=0) as eng:
+        # warm the engine's prefill buckets and capture its step
+        warm = serve_engine(eng, [(p[:16], 2) for p, _ in requests[:2]])[0]
+        torch.cuda.synchronize()
+        steps0 = eng.stats()
+        torch.cuda.reset_peak_memory_stats()
+        _support.reset_launches()
+        eng.decode_steps = eng.prefill_calls = eng.prefill_calls_fresh = 0
+        out12, wall = serve_engine(eng, requests, cancel=5)
+        torch.cuda.synchronize()
+        launches12 = dict(_support.LAUNCHES)
+        expected = dict.fromkeys(launches12, 0)
+        expected.update(engine_expected(eng, L, paged=False))
+        expected["decode_attention"] -= L          # captured during warm-up
+        expected["rms_norm"] -= 2 * L + 1
+        expected["rope"] -= 2 * L
+        rep = engine_report("engine", "Llama-2-7B, contiguous engine",
+                            eng, out12, wall, launches12, expected, run)
+        rep["warmup"] = {"requests": len(warm), "stats": steps0}
+        # the decode step as a replayed graph at 8 active slots, each at the
+        # traffic's mean context
+        ctx = int(np.mean([len(p) + n // 2 for p, n in requests]))
+        set_step_state(eng, [ctx] * ENGINE_SLOTS)
+        rep["decode_graph_ms"] = time_replay(eng)
+        rep["decode_graph_ctx"] = ctx
+        weight_bytes = sum(p.numel() * p.element_size()
+                           for p in model.parameters())
+        rep["decode_bound_ms"] = (weight_bytes + 2 * ENGINE_SLOTS * ctx * L
+                                  * cfg.num_kv_heads * cfg.head_dim * 2
+                                  ) / HBM_BYTES_PER_S * 1e3
+        log(f"engine decode step replayed as a CUDA graph at "
+            f"{ENGINE_SLOTS} slots of {ctx} positions: "
+            f"{rep['decode_graph_ms']:.3f} ms (weights and cache bound "
+            f"{rep['decode_bound_ms']:.3f} ms)")
+    del eng, warm              # the engine's cache and graph pool
+    torch.cuda.empty_cache()
+    # greedy streams against solo generate, and teacher-forced logits of
+    # the batched step against solo forwards (kernels), the bf16-attention
+    # control (solo, plain versions in the JAX einsum arms' numerics)
+    solo = []
+    for (p, n), o in zip(requests, out12):
+        ids = torch.as_tensor(p, dtype=torch.long, device=dev)[None]
+        solo.append(model.generate(ids, len(o["tokens"]))[0, len(p):]
+                    .tolist())
+    rep["greedy_vs_solo"] = greedy_agreement(out12, solo)
+    log(f"engine greedy tokens equal to solo generate: "
+        f"{rep['greedy_vs_solo']}")
+    seqs = [(p, o["tokens"]) for (p, _), o in zip(requests, out12)
+            if o["error"] is None][:ENGINE_SLOTS]
+    want = engine_teacher(model, seqs, "solo")
+    got = engine_teacher(model, seqs, "contiguous")
+    with _support.force_reference(), bf16_attention(decode=True):
+        ctrl = engine_teacher(model, seqs, "solo")
+    engine_logits_check("engine", rep, got, want, ctrl, ENGINE_LOGIT_LIMITS,
+                        run)
+    rep["phase_s"] = time.perf_counter() - t
+    del want, ctrl
+    torch.cuda.empty_cache()
+
+    # ------------------------------- 13. the paged engine, same model
+    # pages of 16 tokens, the pool slots × 64 pages, prefill in chunks of
+    # 256; 4 requests share a 256-token prefix, one prompt has 900 tokens
+    t = time.perf_counter()
+    requests13 = paged_requests(cfg.vocab_size)
+    with GenerationEngine(model, slots=ENGINE_SLOTS,
+                          max_len=ENGINE_MAX_LEN, queue_max=0, ttl_s=0,
+                          paged=True, page_tokens=ENGINE_PAGE,
+                          prefill_chunk=ENGINE_CHUNK) as eng:
+        serve_engine(eng, [(p[:16], 2) for p, _ in requests13[4:6]])
+        eng.clear_prefix_cache()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _support.reset_launches()
+        eng.decode_steps = eng.prefill_calls = eng.prefill_calls_fresh = 0
+        hits0 = get_stat("gen/prefix_hits")
+        out13, wall = serve_engine(eng, requests13)
+        torch.cuda.synchronize()
+        launches13 = dict(_support.LAUNCHES)
+        expected = dict.fromkeys(launches13, 0)
+        expected.update(engine_expected(eng, L, paged=True))
+        expected["paged_decode_attention"] -= L     # captured in warm-up
+        expected["rms_norm"] -= 2 * L + 1
+        expected["rope"] -= 2 * L
+        rep = engine_report("paged_engine", "Llama-2-7B, paged engine", eng,
+                            out13, wall, launches13, expected, run)
+        st = eng.stats()
+        rep["prefix_hits"] = get_stat("gen/prefix_hits") - hits0
+        rep["pages_balanced"] = (st["pages_free"] + st["prefix_entries"]
+                                 == st["pages"])
+        log(f"paged_engine: {rep['prefix_hits']} prefix hits; pages_free "
+            f"{st['pages_free']} + prefix_entries {st['prefix_entries']} "
+            f"== pages {st['pages']}: {rep['pages_balanced']}")
+        if rep["prefix_hits"] < 1 or not rep["pages_balanced"]:
+            failures.append(f"paged_engine: no prefix hit "
+                            f"({rep['prefix_hits']}) or the pool does not "
+                            f"balance: {st}")
+        M = ENGINE_MAX_LEN // ENGINE_PAGE
+        ctx = int(np.mean([len(p) + n // 2 for p, n in requests13]))
+        tables = torch.arange(1, ENGINE_SLOTS * M + 1).reshape(
+            ENGINE_SLOTS, M)
+        set_step_state(eng, [ctx] * ENGINE_SLOTS, tables)
+        rep["decode_graph_ms"] = time_replay(eng)
+        rep["decode_graph_ctx"] = ctx
+        # the same step as the JAX engine runs it: the slots' pages
+        # gathered into a stacked cache, then per-slot B9 (a graph too)
+        def gather_step():
+            view = tuple(torch.stack([paged_gather(eng._cache, r)[i][:, 0]
+                                      for r in eng._pt_buf], 1)
+                         for i in range(2))
+            return model.forward_with_cache(eng._tok_buf, view,
+                                            eng._pos_buf)[0][:, -1]
+        b10_logits = eng._step_logits().float()
+        gb9_logits = gather_step().float()
+        rep["b10_vs_gather_b9"] = compare_logits(b10_logits[:, None],
+                                                 gb9_logits[:, None])
+        rep["gather_b9_step_ms"] = time_ms(gather_step, reps=5, inner=2)
+        log(f"paged_engine decode step replayed as a CUDA graph at "
+            f"{ENGINE_SLOTS} slots of {ctx} positions: "
+            f"{rep['decode_graph_ms']:.3f} ms; the step with paged_gather + "
+            f"per-slot B9 instead of B10 {rep['gather_b9_step_ms']:.3f} ms, "
+            f"its logits against B10's {rep['b10_vs_gather_b9']}")
+        if not logits_within(rep["b10_vs_gather_b9"], ENGINE_LOGIT_LIMITS):
+            failures.append(f"paged_engine: B10's step disagrees with "
+                            f"paged_gather + B9: {rep['b10_vs_gather_b9']}")
+        del b10_logits, gb9_logits
+    del eng                    # the pool and the graph's memory
+    torch.cuda.empty_cache()
+    solo13 = []
+    for (p, n), o in zip(requests13, out13):
+        ids = torch.as_tensor(p, dtype=torch.long, device=dev)[None]
+        solo13.append(model.generate(ids, len(o["tokens"]))[0, len(p):]
+                      .tolist())
+    rep["greedy_vs_solo"] = greedy_agreement(out13, solo13)
+    log(f"paged_engine greedy tokens equal to solo generate: "
+        f"{rep['greedy_vs_solo']}")
+    # teacher-forced logits of the paged step against the contiguous one,
+    # both prefilling in the engine's chunks (a chunk after the first
+    # through the chunk arm, as the JAX engine runs it, in both); the
+    # control: the contiguous run with the plain versions in the JAX
+    # einsum arms' bf16 numerics
+    seqs = [(p, o["tokens"]) for (p, _), o in zip(requests13, out13)
+            if o["error"] is None][:ENGINE_SLOTS]
+    _support.reset_launches()
+    got = engine_teacher(model, seqs, "paged", chunk=ENGINE_CHUNK)
+    want = engine_teacher(model, seqs, "contiguous", chunk=ENGINE_CHUNK)
+    with _support.force_reference(), bf16_attention(decode=True):
+        ctrl = engine_teacher(model, seqs, "contiguous", chunk=ENGINE_CHUNK)
+    engine_logits_check("paged_engine", rep, got, want, ctrl,
+                        ENGINE_LOGIT_LIMITS, run)
+    rep["phase_s"] = time.perf_counter() - t
+    del got, want, ctrl
+    torch.cuda.empty_cache()
     del model, seq3, seq11
     torch.cuda.empty_cache()
 
@@ -2024,6 +2847,28 @@ def main() -> int:
         probe=(recording_scan, scan_probe))
     report["mamba_training"]["config"] = dataclasses.asdict(mtcfg)
 
+    # ---------------------------- 14. the dense loss at V <= 2048 (B14/B15)
+    # LlamaConfig.tiny() at head_dim 64, the flash kernel's smallest
+    # (E = 256, 4 heads, 2 kv heads, 2 layers, V = 256, fp32, dense head)
+    # through build_train_step on the card: one B14 and one B15 a step
+    dcfg = LlamaConfig.tiny(hidden_size=256, num_heads=4)   # head_dim 64
+    DL = dcfg.num_layers
+    ids = torch.randint(0, dcfg.vocab_size, (DENSE_B, DENSE_T),
+                        generator=make_generator(SEED + 14, dev), device=dev)
+    dense_launches = train_phase(
+        "dense_loss", f"LlamaConfig.tiny(E=256) ({DL} layers, V "
+        f"{dcfg.vocab_size}, fp32, dense head)",
+        lambda: LlamaForCausalLM(dcfg, device=dev,
+                                 generator=make_generator(SEED, dev)),
+        {"input_ids": ids, "labels": ids},
+        {"rms_norm": 2 * DL + 1, "rms_norm_bwd": 2 * DL + 1, "rope": 4 * DL,
+         "flash_attention": DL, "flash_attention_bwd_dq": DL,
+         "flash_attention_bwd_dkdv": DL, "adamw": 9 * DL + 3,
+         "softmax_xent_lse": 1, "softmax_xent_dx": 1},
+        DENSE_LIMITS, run, expected_loss=math.log(dcfg.vocab_size),
+        n_params=dcfg.num_params(), hidden=dcfg.hidden_size, n_layers=DL,
+        sanity=DENSE_SANITY, control=("loss control", bf16_xent))
+
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke_report.json"),
               "w") as f:
@@ -2044,6 +2889,8 @@ def main() -> int:
                          else gpt_train_launches if name in LN_KERNELS
                          else mamba_train_launches if name in SCAN_KERNELS
                          else int8_launches if name == "decode_attention_int8"
+                         else dense_launches if name in XENT_KERNELS
+                         else launches13 if name == "paged_decode_attention"
                          else train_launches if name in TRAIN_KERNELS
                          else launches)[name],
             "launches_by_path": {"serving": launches[name],
@@ -2055,7 +2902,10 @@ def main() -> int:
                                  "mamba_serving": mamba_serve_launches[name],
                                  "mamba_training":
                                      mamba_train_launches[name],
-                                 "int8_serving": int8_launches[name]},
+                                 "int8_serving": int8_launches[name],
+                                 "engine": launches12[name],
+                                 "paged_engine": launches13[name],
+                                 "dense_loss": dense_launches[name]},
             "max_abs_err": max(r["max_abs_err"] for r in rows
                                if r["kernel"] == name),
             "ms": row["ms"], "plain_ms": row["plain_ms"],

@@ -5,7 +5,11 @@
 // scales k_scale/v_scale [L, B, Hkv, S]). Layer `layer` is read in place
 // through its offset (no per-layer slice is ever copied); only positions
 // [0, index) are read, and the fresh token joins the softmax first.
-// q-head h·G + g reads kv-head h.
+// q-head h·G + g reads kv-head h. `index` is one value for the batch, or,
+// where `slot_index` [B] int32 is given, each row's own value read from
+// device memory (the serving engine's slots sit at different positions,
+// and a CUDA graph that captures the launch replays it at the positions
+// of the moment).
 //
 // Replaces: paddle_tpu/ops/pallas/decode_attention.py:211 raw_call
 //   (_kernel :98), both layouts.
@@ -78,8 +82,9 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ kn,
               const T* __restrict__ vn, const CT* __restrict__ k_cache,
               const CT* __restrict__ v_cache,
               const float* __restrict__ k_scale,
-              const float* __restrict__ v_scale, T* __restrict__ out,
-              int nb, int hkv, int s_len, int layer, int index,
+              const float* __restrict__ v_scale,
+              const int* __restrict__ slot_index, T* __restrict__ out,
+              int nb, int hkv, int s_len, int layer, int index_arg,
               float scale) {
   constexpr int C = D / 32;
   __shared__ float sm_m[kWarps][G];
@@ -89,6 +94,8 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ kn,
   const int h = blockIdx.x, b = blockIdx.y;
   const int hq = hkv * G;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int index = slot_index ? min(max(slot_index[b], 0), s_len)
+                               : index_arg;
 
   float qr[G][C];
 #pragma unroll
@@ -196,16 +203,17 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ kn,
 template <typename T, typename CT, bool QUANT, int D>
 int launch_d(int g, const void* q, const void* kn, const void* vn,
              const void* kc, const void* vc, const float* ks,
-             const float* vs, void* out, int b, int hkv, int s_len,
-             int layer, int index, float scale, cudaStream_t s) {
+             const float* vs, const int* slot_index, void* out, int b,
+             int hkv, int s_len, int layer, int index, float scale,
+             cudaStream_t s) {
   dim3 grid(hkv, b);
 #define PTT_DECODE_CASE(GV)                                                 \
   case GV:                                                                  \
     decode_kernel<T, CT, QUANT, D, GV><<<grid, kWarps * 32, 0, s>>>(        \
         static_cast<const T*>(q), static_cast<const T*>(kn),                \
         static_cast<const T*>(vn), static_cast<const CT*>(kc),              \
-        static_cast<const CT*>(vc), ks, vs, static_cast<T*>(out), b, hkv,   \
-        s_len, layer, index, scale);                                        \
+        static_cast<const CT*>(vc), ks, vs, slot_index,                     \
+        static_cast<T*>(out), b, hkv, s_len, layer, index, scale);          \
     break;
   switch (g) {
     PTT_DECODE_CASE(1)
@@ -222,10 +230,11 @@ int launch_d(int g, const void* q, const void* kn, const void* vn,
 template <typename CT, bool QUANT>
 int dispatch(const void* q, const void* kn, const void* vn,
              const void* k_cache, const void* v_cache, const float* k_scale,
-             const float* v_scale, void* out, int b, int hq, int hkv,
-             int s_len, int d, int layer, int index, float scale, int dtype,
-             void* stream) {
-  if (b <= 0 || hkv <= 0 || hq % hkv || index < 0 || index > s_len)
+             const float* v_scale, const int* slot_index, void* out, int b,
+             int hq, int hkv, int s_len, int d, int layer, int index,
+             float scale, int dtype, void* stream) {
+  if (b <= 0 || hkv <= 0 || hq % hkv ||
+      (!slot_index && (index < 0 || index > s_len)))
     return (int)cudaErrorInvalidValue;
   const int g = hq / hkv;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -234,16 +243,19 @@ int dispatch(const void* q, const void* kn, const void* vn,
     switch (d) {
       case 64:
         return launch_d<T, C, QUANT, 64>(g, q, kn, vn, k_cache, v_cache,
-                                         k_scale, v_scale, out, b, hkv,
-                                         s_len, layer, index, scale, s);
+                                         k_scale, v_scale, slot_index, out,
+                                         b, hkv, s_len, layer, index, scale,
+                                         s);
       case 128:
         return launch_d<T, C, QUANT, 128>(g, q, kn, vn, k_cache, v_cache,
-                                          k_scale, v_scale, out, b, hkv,
-                                          s_len, layer, index, scale, s);
+                                          k_scale, v_scale, slot_index, out,
+                                          b, hkv, s_len, layer, index, scale,
+                                          s);
       case 256:
         return launch_d<T, C, QUANT, 256>(g, q, kn, vn, k_cache, v_cache,
-                                          k_scale, v_scale, out, b, hkv,
-                                          s_len, layer, index, scale, s);
+                                          k_scale, v_scale, slot_index, out,
+                                          b, hkv, s_len, layer, index, scale,
+                                          s);
       default:
         return (int)cudaErrorInvalidValue;
     }
@@ -255,16 +267,19 @@ int dispatch(const void* q, const void* kn, const void* vn,
 
 // q/out [B, Hq, D], kn/vn [B, Hkv, D], caches [L, B, Hkv, S, D] in q's
 // type, all contiguous. D in {64, 128, 256}; G = Hq / Hkv in
-// {1, 2, 4, 8}; 0 <= index <= S; 0 <= layer < L.
+// {1, 2, 4, 8}; 0 <= layer < L. slot_index null: every row reads
+// [0, index), 0 <= index <= S; else row b reads [0, slot_index[b])
+// (int32 [B], clamped to [0, S]) and index is not read.
 extern "C" int ptt_decode_attention(const void* q, const void* kn,
                                     const void* vn, const void* k_cache,
-                                    const void* v_cache, void* out, int b,
+                                    const void* v_cache,
+                                    const int* slot_index, void* out, int b,
                                     int hq, int hkv, int s_len, int d,
                                     int layer, int index, float scale,
                                     int dtype, void* stream) {
   return dispatch<void, false>(q, kn, vn, k_cache, v_cache, nullptr,
-                               nullptr, out, b, hq, hkv, s_len, d, layer,
-                               index, scale, dtype, stream);
+                               nullptr, slot_index, out, b, hq, hkv, s_len,
+                               d, layer, index, scale, dtype, stream);
 }
 
 // The int8 layout: k_cache/v_cache int8 [L, B, Hkv, S, D], k_scale/
@@ -272,9 +287,9 @@ extern "C" int ptt_decode_attention(const void* q, const void* kn,
 extern "C" int ptt_decode_attention_int8(
     const void* q, const void* kn, const void* vn, const void* k_cache,
     const void* v_cache, const float* k_scale, const float* v_scale,
-    void* out, int b, int hq, int hkv, int s_len, int d, int layer,
-    int index, float scale, int dtype, void* stream) {
+    const int* slot_index, void* out, int b, int hq, int hkv, int s_len,
+    int d, int layer, int index, float scale, int dtype, void* stream) {
   return dispatch<int8_t, true>(q, kn, vn, k_cache, v_cache, k_scale,
-                                v_scale, out, b, hq, hkv, s_len, d, layer,
-                                index, scale, dtype, stream);
+                                v_scale, slot_index, out, b, hq, hkv, s_len,
+                                d, layer, index, scale, dtype, stream);
 }

@@ -1,5 +1,7 @@
 // Rotary position embedding, split halves: for x [B, T, H, D] and fp32
-// tables cos/sin [T, D/2],
+// tables cos/sin [T, D/2] shared by the batch, or [B, T, D/2] of each
+// row's own positions (the serving engine's slots decode at different
+// positions; the tables are gathered on the device from their positions),
 //   out[..., i]      = x1 * cos - x2 * sin * sign
 //   out[..., i + D/2] = x2 * cos + x1 * sin * sign
 // with x1 = x[..., i], x2 = x[..., i + D/2], in fp32. sign = -1 rotates by
@@ -24,15 +26,17 @@ __global__ void rope_kernel(const T* __restrict__ x,
                             const float* __restrict__ cos_t,
                             const float* __restrict__ sin_t,
                             T* __restrict__ out, int64_t pairs, int t_len,
-                            int heads, int d2, float sign) {
+                            int heads, int d2, int per_row, float sign) {
   const int64_t p = (int64_t)blockIdx.x * kThreads + threadIdx.x;
   if (p >= pairs) return;
   const int i = (int)(p % d2);
   const int64_t row = p / d2;                // (b, t, h) flattened
-  const int t = (int)((row / heads) % t_len);
+  // the table row: (b, t) for per-row tables, t for shared ones
+  const int64_t bt = row / heads;
+  const int64_t tr = per_row ? bt : bt % t_len;
+  const float c = cos_t[tr * d2 + i];
+  const float s = sin_t[tr * d2 + i] * sign;
   const int64_t base = row * (2 * (int64_t)d2);
-  const float c = cos_t[(int64_t)t * d2 + i];
-  const float s = sin_t[(int64_t)t * d2 + i] * sign;
   const float x1 = ptt::to_f32(x[base + i]);
   const float x2 = ptt::to_f32(x[base + d2 + i]);
   out[base + i] = ptt::from_f32<T>(x1 * c - x2 * s);
@@ -41,10 +45,11 @@ __global__ void rope_kernel(const T* __restrict__ x,
 
 }  // namespace
 
-// x, out: [B, T, H, D] contiguous; cos, sin: [T, D/2] fp32 contiguous.
+// x, out: [B, T, H, D] contiguous; cos, sin: fp32 contiguous, [T, D/2]
+// (per_row = 0) or [B, T, D/2] (per_row = 1).
 extern "C" int ptt_rope(const void* x, const void* cos_t, const void* sin_t,
-                        void* out, int b, int t, int h, int d, float sign,
-                        int dtype, void* stream) {
+                        void* out, int b, int t, int h, int d, int per_row,
+                        float sign, int dtype, void* stream) {
   if (b <= 0 || t <= 0 || h <= 0 || d <= 0 || d % 2)
     return (int)cudaErrorInvalidValue;
   const int d2 = d / 2;
@@ -55,7 +60,7 @@ extern "C" int ptt_rope(const void* x, const void* cos_t, const void* sin_t,
     rope_kernel<T><<<(unsigned)blocks, kThreads, 0, s>>>(
         static_cast<const T*>(x), static_cast<const float*>(cos_t),
         static_cast<const float*>(sin_t), static_cast<T*>(out), pairs, t, h,
-        d2, sign);
+        d2, per_row, sign);
   });
   return (int)cudaGetLastError();
 }

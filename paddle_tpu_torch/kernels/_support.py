@@ -23,11 +23,15 @@ forward, and their backward follows that decision: a forward run inside
 There is no fallback: a refused launch raises.
 
 Counting. ``LAUNCHES[name]`` is a plain int that the wrapper raises by
-one where it launches its kernel, and nowhere else. A kernel's name is
+one where it launches its kernel, and nowhere else. A CUDA graph is the
+one exception the wrappers cannot see: under ``captured_launches()`` a
+capture's increments (which launched nothing) are taken back and kept,
+and each replay adds them again (``add_launches``), so the counts are the
+launches the card ran. A kernel's name is
 its counter's; ``SOURCES`` maps it to the ``.cu`` file that holds it
 (one source may hold several kernels, e.g. the forward and backward of
-RMSNorm, of LayerNorm or of the selective scan, or the two layouts of
-decode attention).
+RMSNorm, of LayerNorm, of the selective scan or of softmax
+cross-entropy, or the two layouts of decode attention).
 """
 
 from __future__ import annotations
@@ -43,6 +47,7 @@ from pathlib import Path
 import torch
 
 __all__ = ["KERNELS", "SOURCES", "LAUNCHES", "reset_launches",
+           "captured_launches", "add_launches",
            "force_reference", "use_kernel", "build", "library", "check",
            "stream_of", "compute_dtype", "dtype_code"]
 
@@ -64,6 +69,9 @@ SOURCES = {
     "selective_scan": "selective_scan",
     "selective_scan_bwd": "selective_scan",
     "decode_attention_int8": "decode_attention",
+    "softmax_xent_lse": "softmax_xent",
+    "softmax_xent_dx": "softmax_xent",
+    "paged_decode_attention": "paged_decode_attention",
 }
 KERNELS = tuple(SOURCES)
 LAUNCHES = {name: 0 for name in KERNELS}
@@ -82,6 +90,29 @@ _libs: dict[str, ctypes.CDLL] = {}
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+
+
+@contextlib.contextmanager
+def captured_launches():
+    """Around a CUDA graph capture: yields a dict that ends up holding the
+    launches the capture recorded, kernel by kernel, and takes them back
+    out of ``LAUNCHES`` (a capture launches nothing); ``add_launches``
+    books them at each replay."""
+    before = dict(LAUNCHES)
+    counts: dict[str, int] = {}
+    try:
+        yield counts
+    finally:
+        for name, n in LAUNCHES.items():
+            if n != before[name]:
+                counts[name] = n - before[name]
+                LAUNCHES[name] = before[name]
+
+
+def add_launches(counts: dict[str, int]) -> None:
+    """Book one replay of a captured graph's launches."""
+    for name, n in counts.items():
+        LAUNCHES[name] += n
 
 
 @contextlib.contextmanager

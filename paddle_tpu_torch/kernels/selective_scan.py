@@ -39,6 +39,7 @@ _BWD_NAME = "selective_scan_bwd"
 MAX_STATE = 32       # N: the kernels keep ceil(N / 4) states a thread
 CHANNEL_BLOCK = 32   # channels a block of the kernels owns
 PLAIN_CHUNK = 64     # steps the plain versions vectorise around the loop
+LOG2E = 1.4426950408889634
 
 
 def _cast(ts):
@@ -46,10 +47,26 @@ def _cast(ts):
     return ct, [None if t is None else t.to(ct) for t in ts]
 
 
+def _exp(x):
+    """exp(x) as the plain versions take it. On a CPU tensor: exp2(x·log2
+    e), the kernels' own form (``__expf`` is ``ex2.approx`` of the scaled
+    argument), which keeps off ``torch.exp``'s MKL vector-math path: its
+    first multithreaded call in a process can return one thread's share
+    of the elements with up to 1.5e-4 relative error while XLA:CPU work
+    runs beside it (5 first calls in 90, the JAX parity tests' setting;
+    ``torch.exp2`` 0 in 90), so the plain scan's first call ran other
+    arithmetic than its later ones. On the card ``torch.exp``, which has
+    no such path and which ``chip_smoke.py``'s whole-run limits were read
+    against."""
+    if x.device.type == "cpu":
+        return torch.exp2(x * LOG2E)
+    return torch.exp(x)
+
+
 def _chunk_coeffs(u, delta, A, B, sl):
     """exp(Δ·A) and Δ·u·B for the steps ``sl``: [B, k, Ei, N] each."""
     dl = delta[:, sl]
-    dA = torch.exp(dl[..., None] * A)
+    dA = _exp(dl[..., None] * A)
     dBu = (dl * u[:, sl])[..., None] * B[:, sl, None, :]
     return dA, dBu
 

@@ -167,8 +167,10 @@ class GPTForCausalLM(nn.Module):
         return self.embed.weight.dtype
 
     def _embed(self, input_ids, index=0):
-        positions = (torch.arange(input_ids.shape[1], device=self.device)
-                     + int(index or 0))
+        steps = torch.arange(input_ids.shape[1], device=self.device)
+        positions = (index.long()[:, None] + steps
+                     if isinstance(index, torch.Tensor)
+                     else steps + int(index or 0))
         return self.embed(input_ids) + self.pos_embed(positions)
 
     def hidden_states(self, input_ids, training: bool = False,

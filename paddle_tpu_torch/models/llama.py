@@ -202,9 +202,13 @@ class LlamaForCausalLM(nn.Module):
         return self.embed.weight.dtype
 
     def _rope(self, T: int, index):
-        """(cos, sin) [T, D/2] for positions ``arange(T) + index`` — once
-        per forward, shared by every layer."""
-        positions = torch.arange(T, device=self.device) + int(index or 0)
+        """(cos, sin) for positions ``arange(T) + index`` — once per
+        forward, shared by every layer: [T, D/2] for an int index, [B, T,
+        D/2] gathered on the device for a per-slot ``[B]`` index."""
+        steps = torch.arange(T, device=self.device)
+        positions = (index.long()[:, None] + steps
+                     if isinstance(index, torch.Tensor)
+                     else steps + int(index or 0))
         return F.rotary_embedding(positions, self.config.head_dim,
                                   self.config.rope_base)
 
@@ -213,10 +217,12 @@ class LlamaForCausalLM(nn.Module):
             return self.lm_head(x)
         return x @ self.embed.weight.T
 
-    def hidden_states(self, input_ids):
+    def hidden_states(self, input_ids, training: bool = False):
         """Trunk (embed → blocks → final norm) without the head. Under
         ``cfg.remat`` with gradients enabled, each block recomputes its
-        forward in backward."""
+        forward in backward. Llama has no dropout: ``training`` is taken
+        for the JAX package's signature (``paddle_tpu/models/llama.py:251``)
+        and changes nothing."""
         cfg = self.config
         x = self.embed(input_ids)
         rope = self._rope(input_ids.shape[1], 0)
@@ -224,8 +230,8 @@ class LlamaForCausalLM(nn.Module):
                        policy=cfg.remat_policy)
         return self.norm(x)
 
-    def forward(self, input_ids):
-        return self._head(self.hidden_states(input_ids))
+    def forward(self, input_ids, training: bool = False):
+        return self._head(self.hidden_states(input_ids, training))
 
     def init_cache(self, batch_size: int, max_len: int, dtype=None):
         """Stacked static KV cache ([L, B, Hkv, S, D], same) of zeros on
@@ -240,11 +246,16 @@ class LlamaForCausalLM(nn.Module):
     @torch.no_grad()
     def forward_with_cache(self, input_ids, cache, index):
         """Forward a chunk (prefill: the prompt at index 0; decode: one
-        token at index t). Every block reads the stacked cache through its
-        layer id; after the last block ONE stacked write puts the chunk's
-        k/v of all layers at ``[index, index + T)`` — in place (see
-        ``_common.apply_cache_writes``). Returns (logits [B, T, V],
-        cache)."""
+        token at index t; a later chunk of a prompt at its offset). Every
+        block reads the stacked cache through its layer id; after the last
+        block ONE stacked write puts the chunk's k/v of all layers at
+        ``[index, index + T)`` — in place (see
+        ``_common.apply_cache_writes``). The serving engine's batched step
+        passes one token a slot with ``index`` an int32 ``[B]`` tensor of
+        the slots' positions, over the stacked cache or a
+        ``_common.PagedKV`` (the ``jax.vmap`` of this method in
+        ``paddle_tpu/serving/engine.py:860-888``). Returns (logits
+        [B, T, V], cache)."""
         x = self.embed(input_ids)
         rope = self._rope(input_ids.shape[1], index)
         payloads = []
@@ -256,16 +267,19 @@ class LlamaForCausalLM(nn.Module):
         return self._head(self.norm(x)), cache
 
     def loss(self, input_ids, labels, ignore_index: int = -100,
+             training: bool = True,
              generator: torch.Generator | None = None):
         """Next-token cross entropy (labels equal to the inputs for LM
         training on packed sequences, positions at ``ignore_index``
         skipped) through ``cfg.lm_head_mode`` — see
         ``_common.causal_lm_loss``. A tied model's head weight is the
-        embedding table transposed. Llama has no dropout: ``generator``
-        is taken for the training step's call and not used."""
+        embedding table transposed. Llama has no dropout: ``training``
+        goes to the trunk as in the JAX package, and ``generator`` is
+        taken for the training step's call and not used."""
         weight = (self.lm_head.weight if self.lm_head is not None
                   else self.embed.weight.T)
-        return causal_lm_loss(self, weight, input_ids, labels, ignore_index)
+        return causal_lm_loss(self, weight, input_ids, labels, ignore_index,
+                              training=training)
 
     def generate(self, input_ids, max_new_tokens: int, **kwargs):
         """Autoregressive decode — see ``paddle_tpu_torch.models.

@@ -248,24 +248,28 @@ class MambaForCausalLM(nn.Module):
     def dtype(self) -> torch.dtype:
         return self.embed.weight.dtype
 
-    def hidden_states(self, input_ids):
+    def hidden_states(self, input_ids, training: bool = False):
         """embed → blocks (each recomputed in backward under
-        ``cfg.remat``) → final norm."""
+        ``cfg.remat``) → final norm. Mamba has no dropout: ``training``
+        is taken for the JAX package's signature
+        (``paddle_tpu/models/mamba.py:298``) and changes nothing."""
         x = run_blocks(self.blocks, self.embed(input_ids),
                        remat=self.config.remat)
         return self.norm(x)
 
-    def forward(self, input_ids):
-        return self.hidden_states(input_ids) @ self.embed.weight.T
+    def forward(self, input_ids, training: bool = False):
+        return self.hidden_states(input_ids, training) @ self.embed.weight.T
 
     def loss(self, input_ids, labels, ignore_index: int = -100,
+             training: bool = True,
              generator: torch.Generator | None = None):
         """Next-token cross entropy through ``cfg.lm_head_mode`` with the
         tied head ``embed.weight.T`` (``_common.causal_lm_loss``). Mamba
-        has no dropout: ``generator`` is taken for the training step's
-        call and not used."""
+        has no dropout: ``training`` goes to the trunk as in the JAX
+        package, and ``generator`` is taken for the training step's call
+        and not used."""
         return causal_lm_loss(self, self.embed.weight.T, input_ids, labels,
-                              ignore_index)
+                              ignore_index, training=training)
 
     # ---- decode interface (models/generation.py contract) -------------
     # The "cache" is the per-layer recurrent state (conv tail + SSM

@@ -14,6 +14,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from paddle_tpu_torch import kernels
+from paddle_tpu_torch.kernels import softmax_xent as SX
 
 __all__ = ["silu", "swiglu", "gelu", "softplus", "linear", "embedding", "dropout",
            "rms_norm", "layer_norm", "rotary_embedding", "apply_rotary",
@@ -85,53 +86,87 @@ def rms_norm(x, weight, epsilon: float = 1e-6):
     return kernels.norm.rms_norm(x, weight, epsilon)
 
 
-def layer_norm(x, weight=None, bias=None, epsilon: float = 1e-5):
-    """LayerNorm over the last axis (fp32 statistics) — the layer_norm
-    kernel. A missing weight is ones and a missing bias zeros, as in the
-    JAX package's Pallas path."""
-    h = x.shape[-1]
-    if weight is None:
-        weight = torch.ones(h, dtype=x.dtype, device=x.device)
-    if bias is None:
-        bias = torch.zeros(h, dtype=weight.dtype, device=x.device)
-    return kernels.norm.layer_norm(x, weight, bias, epsilon)
+def layer_norm(x, weight=None, bias=None, epsilon: float = 1e-5,
+               axis=-1):
+    """LayerNorm over ``axis`` (``paddle_tpu/nn/functional.py:149``).
+
+    Over the last axis: the layer_norm kernel (fp32 statistics); a
+    missing weight is ones and a missing bias zeros, as in the JAX
+    package's Pallas path. Over any other axis or axes (an int or a
+    tuple): the JAX package's plain arm (``:158-166``) in torch ops, the
+    mean, variance and affine step in x's type."""
+    if axis in (-1, x.ndim - 1):
+        h = x.shape[-1]
+        if weight is None:
+            weight = torch.ones(h, dtype=x.dtype, device=x.device)
+        if bias is None:
+            bias = torch.zeros(h, dtype=weight.dtype, device=x.device)
+        return kernels.norm.layer_norm(x, weight, bias, epsilon)
+    dims = tuple(axis) if isinstance(axis, (tuple, list)) else (axis,)
+    mean = x.mean(dim=dims, keepdim=True)
+    var = (x - mean).square().mean(dim=dims, keepdim=True)
+    y = (x - mean) * torch.rsqrt(var + epsilon)
+    if weight is not None:
+        y = y * weight
+    if bias is not None:
+        y = y + bias
+    return y
 
 
-def rotary_embedding(positions, dim: int, base: float = 10000.0):
+def rotary_embedding(positions, dim: int, base: float = 10000.0,
+                     dtype=torch.float32):
     """RoPE tables for integer positions: (cos, sin), each
-    [..., dim/2] fp32."""
+    [..., dim/2], computed in fp32 and returned in ``dtype``."""
     inv_freq = 1.0 / (base ** (torch.arange(
         0, dim, 2, dtype=torch.float32, device=positions.device) / dim))
     angles = positions[..., None].to(torch.float32) * inv_freq
-    return torch.cos(angles), torch.sin(angles)
+    return torch.cos(angles).to(dtype), torch.sin(angles).to(dtype)
 
 
 def apply_rotary(x, cos, sin):
-    """Rotate [B, T, H, D] split halves by [T, D/2] tables — the rope
+    """Rotate [B, T, H, D] split halves by [T, D/2] tables shared by the
+    batch, or [B, T, D/2] tables of each row's own positions — the rope
     kernel."""
     return kernels.rope.apply_rotary(x, cos, sin)
 
 
+PALLAS_MODES = ("auto", "always", "never")
+
+
 def scaled_dot_product_attention(q, k, v, mask=None, *,
                                  causal: bool = False,
-                                 scale: float | None = None):
+                                 scale: float | None = None,
+                                 dropout_p: float = 0.0,
+                                 training: bool = False,
+                                 use_pallas="auto",
+                                 generator: torch.Generator | None = None):
     """Attention core over [B, T, H, D], grouped-query heads allowed
     (Hq % Hkv == 0). Never torch's own fused attention.
 
-    Without ``mask``: the flash kernel on CUDA, its plain einsum version
-    on the CPU — where the JAX package dispatches its Pallas kernel
-    (``paddle_tpu/nn/functional.py:573-587``).
+    Without ``mask`` and dropout, and unless ``use_pallas`` is ``"never"``
+    (or False): the flash kernel on CUDA, its plain einsum version on the
+    CPU — where the JAX package dispatches its Pallas kernel
+    (``paddle_tpu/nn/functional.py:573-587``). ``"auto"`` and
+    ``"always"`` (or True) both take the kernel: it takes every shape the
+    port serves, and raises on one it does not.
 
-    With ``mask`` (broadcastable to [B, H, Tq, Tk]; True or non-zero =
-    attend, as ``jnp.where(mask, ...)`` reads it): the JAX package's
-    einsum arm (``:594-611``) in torch ops — scores in the input type,
-    masked with the type's lowest value, softmax in fp32, probabilities
-    cast back before the product. That arm is plain XLA in the JAX
-    package, not a Pallas kernel, so it is no kernel fallback here; it
+    Otherwise the JAX package's einsum arm (``:589-611``) in torch ops:
+    scores in the input type, the causal and ``mask`` positions (mask
+    broadcastable to [B, H, Tq, Tk]; True or non-zero = attend, as
+    ``jnp.where(mask, ...)`` reads it) set to the type's lowest value,
+    softmax in fp32, probabilities cast back before the product; with
+    ``dropout_p > 0`` and ``training`` the probabilities are dropped out
+    (``dropout``, drawn from ``generator``). That arm is plain XLA in the
+    JAX package, not a Pallas kernel, so it is no kernel fallback here; it
     runs on CUDA tensors as on CPU tensors."""
+    if use_pallas in (True, False):
+        use_pallas = "auto" if use_pallas else "never"
+    if use_pallas not in PALLAS_MODES:
+        raise ValueError(f"use_pallas {use_pallas!r}: one of "
+                         f"{PALLAS_MODES} or a bool")
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
-    if mask is None:
+    if mask is None and dropout_p == 0.0 and use_pallas != "never":
         return kernels.flash_attention.flash_attention(q, k, v,
                                                        causal=causal,
                                                        scale=scale)
@@ -146,9 +181,12 @@ def scaled_dot_product_attention(q, k, v, mask=None, *,
         keep = torch.ones(Tq, Tk, dtype=torch.bool, device=q.device).tril(
             Tk - Tq)
         logits = logits.masked_fill(~keep, lowest)
-    keep = mask if mask.dtype == torch.bool else mask != 0
-    logits = logits.masked_fill(~keep, lowest)
+    if mask is not None:
+        keep = mask if mask.dtype == torch.bool else mask != 0
+        logits = logits.masked_fill(~keep, lowest)
     probs = torch.softmax(logits.float(), dim=-1).to(q.dtype)
+    if dropout_p > 0.0 and training:
+        probs = dropout(probs, dropout_p, training=True, generator=generator)
     return torch.einsum("bhqk,bkhd->bqhd", probs, v)
 
 
@@ -156,13 +194,40 @@ def scaled_dot_product_attention(q, k, v, mask=None, *,
 # Losses (``paddle_tpu/nn/functional.py:326-495``)
 # ---------------------------------------------------------------------------
 
-def softmax_with_cross_entropy(logits, label, ignore_index: int = -100,
-                               axis: int = -1):
-    """Per-position softmax cross entropy against int labels, 0 where the
-    label is ``ignore_index``. Plain torch: at Llama's vocabulary the JAX
-    package takes the same ``log_softmax`` + gather path (its Pallas
-    kernel dispatches only for V <= 2048)."""
+def softmax_with_cross_entropy(logits, label, soft_label: bool = False,
+                               ignore_index: int = -100, axis: int = -1):
+    """Per-position softmax cross entropy (``paddle_tpu/nn/functional.py
+    :326-370``).
+
+    Int labels over the last axis with ``V % 256 == 0``, ``V <= 2048``
+    and fp32 or bf16 logits take the softmax cross-entropy kernels (B14
+    forward, B15 backward; their plain versions on CPU tensors) under the
+    JAX package's gate: the rows are padded to the kernel's row block with
+    ``ignore_index`` labels, positions at ``ignore_index`` get 0, and the
+    loss comes back in the logits' type (``:339-363``). Otherwise
+    ``log_softmax``: ``-sum(label · logp)`` with ``soft_label``, else the
+    label's negative log-probability, 0 where the label is
+    ``ignore_index``."""
+    if (not soft_label and axis in (-1, logits.ndim - 1)
+            and not label.is_floating_point()):
+        v = logits.shape[-1]
+        if (v % SX.BLOCK_V == 0 and v <= SX.DISPATCH_MAX_V
+                and logits.dtype in (torch.float32, torch.bfloat16)):
+            flat, lab = logits.reshape(-1, v), label.reshape(-1)
+            n = flat.shape[0]
+            pad = SX.row_pad(n)
+            if pad:
+                flat = torch.cat([flat, flat.new_zeros(pad, v)])
+                lab = torch.cat([lab, lab.new_full((pad,), ignore_index)])
+            if SX.supported(flat, lab):
+                valid = lab != ignore_index
+                loss = SX.softmax_cross_entropy(
+                    flat, torch.where(valid, lab, 0))
+                loss = torch.where(valid, loss, 0.0).to(logits.dtype)
+                return loss[:n].reshape(label.shape)
     logp = torch.log_softmax(logits, dim=axis)
+    if soft_label:
+        return -(label * logp).sum(dim=axis)
     valid = label != ignore_index
     safe = torch.where(valid, label, 0).long()
     nll = -torch.gather(logp, axis, safe.unsqueeze(axis)).squeeze(axis)
@@ -180,12 +245,38 @@ def _reduce_valid(loss, valid, reduction: str):
                      "'none'")
 
 
-def cross_entropy(logits, label, ignore_index: int = -100,
-                  reduction: str = "mean", axis: int = -1):
-    """Cross entropy with int labels; ``"mean"`` averages over the
-    positions whose label is not ``ignore_index``."""
-    loss = softmax_with_cross_entropy(logits, label, ignore_index, axis)
-    return _reduce_valid(loss, label != ignore_index, reduction)
+def cross_entropy(logits, label, soft_label: bool = False,
+                  ignore_index: int = -100, reduction: str = "mean",
+                  weight=None, axis: int = -1):
+    """Cross entropy (``paddle_tpu/nn/functional.py:373-400``). Int
+    labels: ``"mean"`` averages over the positions whose label is not
+    ``ignore_index``; a per-class ``weight`` [V] scales each position by
+    its label's weight (0 at ``ignore_index``) and ``"mean"`` divides by
+    the weights' sum. Soft labels: ``"mean"`` is the plain mean; with
+    ``weight`` the weights fold into the inner sum,
+    ``-sum_c label_c·w_c·logp_c``, and ``"mean"`` divides by the total
+    effective weight ``sum label·w``."""
+    if weight is not None and soft_label:
+        logp = torch.log_softmax(logits, dim=axis)
+        loss = -(label * weight * logp).sum(dim=axis)
+        if reduction == "mean":
+            wsum = (label * weight).sum(dim=axis)
+            return loss.sum() / wsum.sum().clamp_min(1e-12)
+        return loss.sum() if reduction == "sum" else loss
+    loss = softmax_with_cross_entropy(logits, label, soft_label,
+                                      ignore_index, axis)
+    if soft_label:
+        if reduction == "mean":
+            return loss.mean()
+        return loss.sum() if reduction == "sum" else loss
+    valid = label != ignore_index
+    if weight is not None:
+        w = torch.where(valid, weight[torch.where(valid, label, 0).long()],
+                        0.0)
+        loss = loss * w
+        if reduction == "mean":
+            return loss.sum() / w.sum().clamp_min(1e-12)
+    return _reduce_valid(loss, valid, reduction)
 
 
 def check_head_mode(mode: str) -> None:
@@ -252,7 +343,7 @@ def linear_cross_entropy(hidden, weight, label, ignore_index: int = -100,
         loss = chunked_linear_cross_entropy(flat, weight, lab)
     else:
         loss = softmax_with_cross_entropy((flat @ weight).float(), lab,
-                                          ignore_index)
+                                          ignore_index=ignore_index)
     valid = lab != ignore_index
     loss = _reduce_valid(torch.where(valid, loss, 0.0), valid, reduction)
     return loss.reshape(label.shape) if reduction == "none" else loss

@@ -18,7 +18,8 @@ import math
 import pytest
 import torch
 
-from chip_smoke import int8_faults, scan_faults
+from chip_smoke import (int8_faults, paged_faults, scan_faults,
+                        xent_faults, xent_grad, xent_mismatch)
 
 from paddle_tpu_torch.kernels import _support
 from paddle_tpu_torch.kernels import adamw as A
@@ -251,6 +252,58 @@ def test_kernel_on_card(name):
             for fault, b in bad.items():
                 assert SS.mismatch(b, want) > 1, (shape, fault)
         return
+    elif name.startswith("softmax_xent"):
+        # fp32 and bf16 logits, N inside the loss's gate (the dense loss
+        # pads N to it; chip_smoke holds a ragged N that way); B14 held by
+        # chip_smoke.xent_mismatch("lse"), the loss's gradient (B15 and the
+        # one-hot term outside it) by xent_mismatch("dx <type>"); the
+        # planted faults must fail the same checks
+        from paddle_tpu_torch.kernels import softmax_xent as SX
+        for n, v, dt in ((256, 512, torch.float32),
+                         (64, 1024, torch.bfloat16)):
+            x = (torch.randn(n, v, generator=g, device="cuda") * 3).to(dt)
+            lab = torch.randint(0, v, (n,), generator=g, device="cuda")
+            gr = torch.rand(n, generator=g, device="cuda")
+            lse_faults, dx_faults = xent_faults(x, lab, gr)
+            if name == "softmax_xent_lse":
+                check = xent_mismatch("lse")
+                got, want, bad = SX.lse(x), SX.lse_reference(x), lse_faults
+            else:
+                check = xent_mismatch(f"dx {str(dt).split('.')[-1]}")
+                got = xent_grad(x, lab, gr)
+                with _support.force_reference():
+                    want = xent_grad(x, lab, gr)
+                bad = dx_faults
+            torch.cuda.synchronize()
+            assert check(got, want) <= 1, (n, v, dt)
+            for fault, b in bad.items():
+                assert check(b, want) > 1, (n, v, dt, fault)
+        return
+    elif name == "paged_decode_attention":
+        # fp32 and bf16 pools of 8-token pages, 4 slots at positions 0, a
+        # partial page, full pages and the table's end, tables scattered
+        # over the pool; planted faults must fail the same check
+        from paddle_tpu_torch.kernels import paged_decode_attention as PDA
+        for dt in (torch.float32, torch.bfloat16):
+            pool = tuple(torch.randn(41, 3, 2, 8, 128, generator=g,
+                                     device="cuda").to(dt)
+                         for _ in range(2))
+            table = (torch.randperm(40, generator=g, device="cuda")[:40]
+                     .reshape(4, 10) + 1).to(torch.int32)
+            pos = torch.tensor([0, 5, 24, 80], dtype=torch.int32,
+                               device="cuda")
+            q = torch.randn(4, 1, 8, 128, generator=g, device="cuda").to(dt)
+            kn, vn = (torch.randn(4, 2, 1, 128, generator=g,
+                                  device="cuda").to(dt) for _ in range(2))
+            got = PDA.paged_decode_attention(q, kn, vn, pool, table, pos, 2)
+            want = PDA.paged_decode_attention_reference(q, kn, vn, pool,
+                                                        table, pos, 2)
+            torch.cuda.synchronize()
+            assert _close(got, want), dt
+            for fault, bad in paged_faults(q, kn, vn, pool, table, pos,
+                                           2).items():
+                assert not _close(bad, want), (dt, fault)
+        return
     elif name == "decode_attention_int8":
         cache = _int8_cache(g, 3, 2, 2, 90, 128)
         q, kn, vn = rn(2, 1, 8, 128), rn(2, 2, 1, 128), rn(2, 2, 1, 128)
@@ -308,3 +361,95 @@ def test_flash_head_dim_64_non_causal_on_card(part):
     torch.cuda.synchronize()
     assert _close(got, want)
     assert not _close(bad, want)
+
+
+@pytest.mark.parametrize("quant", [False, True])
+def test_per_slot_decode_on_card(quant):
+    """Decode attention at a per-slot int32 index read from device memory,
+    float and int8 caches: equal to the scalar form run slot by slot (the
+    same kernel arithmetic), and within 2e-2 of the plain version."""
+    g = _generator()
+    if quant:
+        cache = _int8_cache(g, 2, 4, 2, 96, 128)
+        plain = DA.decode_attention_int8_reference
+    else:
+        cache = tuple(torch.randn(2, 4, 2, 96, 128, generator=g,
+                                  device="cuda").to(torch.bfloat16)
+                      for _ in range(2))
+        plain = DA.decode_attention_reference
+    q = torch.randn(4, 1, 8, 128, generator=g, device="cuda").bfloat16()
+    kn, vn = (torch.randn(4, 2, 1, 128, generator=g, device="cuda")
+              .bfloat16() for _ in range(2))
+    index = [0, 7, 64, 96]
+    idx = torch.tensor(index, dtype=torch.int32, device="cuda")
+    got = DA.decode_attention(q, kn, vn, cache, 1, idx)
+    rows = torch.cat([DA.decode_attention(
+        q[b:b + 1], kn[b:b + 1], vn[b:b + 1],
+        tuple(c[:, b:b + 1].contiguous() for c in cache), 1, index[b])
+        for b in range(4)])
+    torch.cuda.synchronize()
+    assert torch.equal(got, rows)
+    assert _close(got, plain(q, kn, vn, cache, 1, idx))
+
+
+def test_rope_per_row_tables_on_card():
+    """RoPE with [B, T, D/2] tables (each row at its own positions)
+    against its plain version and against the shared-table form row by
+    row."""
+    g = _generator()
+    from paddle_tpu_torch.nn.functional import rotary_embedding
+    x = torch.randn(4, 1, 8, 128, generator=g, device="cuda").bfloat16()
+    pos = torch.tensor([0, 9, 300, 1023], device="cuda")
+    cos, sin = rotary_embedding(pos[:, None], 128)
+    got = R.apply_rotary(x, cos, sin)
+    assert _close(got, R.apply_rotary_reference(x, cos, sin))
+    for b in range(4):
+        assert torch.equal(got[b:b + 1], R.apply_rotary(
+            x[b:b + 1], cos[b], sin[b]))
+
+
+@pytest.mark.parametrize("paged", [False, True])
+def test_engine_on_card(paged):
+    """The GenerationEngine on the card with a small fp32 Llama: greedy
+    streams (co-tenants, buckets, in paged mode shared prefix pages and
+    chunked prefill) equal solo generate, the decode step runs as a
+    captured CUDA graph, and the step's attention kernel is the
+    contiguous cache's per-slot decode (B9) or the pool's (B10)."""
+    import numpy as np
+
+    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+    from paddle_tpu_torch.serving import GenerationEngine
+    _generator()
+    cfg = LlamaConfig.tiny(vocab_size=512, hidden_size=256, num_heads=2,
+                           num_kv_heads=2, max_seq_len=128)
+    model = LlamaForCausalLM(cfg, device="cuda")
+    rs = np.random.RandomState(0)
+    prefix = rs.randint(0, 512, (20,))
+    prompts = [np.concatenate([prefix, rs.randint(0, 512, (n,))])
+               for n in (3, 9)] + [rs.randint(0, 512, (n,))
+                                   for n in (5, 40, 17)]
+    _support.reset_launches()
+    with GenerationEngine(model, slots=3, max_len=96, queue_max=0,
+                          paged=paged, page_tokens=8,
+                          prefill_chunk=16) as eng:
+        gids = [eng.start(p, 12) for p in prompts]
+        outs = []
+        for gid in gids:
+            toks = []
+            for _ in range(600):
+                doc = eng.poll(gid, start=len(toks), wait_s=0.1)
+                toks += doc["tokens"]
+                if doc["done"]:
+                    break
+            assert doc["done"] and doc["error"] is None
+            outs.append(toks)
+        st = eng.stats()
+    assert st["cuda_graph"] is True
+    step = "paged_decode_attention" if paged else "decode_attention"
+    other = "decode_attention" if paged else "paged_decode_attention"
+    assert _support.LAUNCHES[step] == cfg.num_layers * (st["decode_steps"]
+                                                        + 1)
+    assert _support.LAUNCHES[other] == 0
+    for p, toks in zip(prompts, outs):
+        ids = torch.as_tensor(p, device="cuda")[None]
+        assert toks == model.generate(ids, 12)[0, len(p):].tolist()

@@ -31,7 +31,8 @@ def _forbidden(module: str) -> bool:
 def test_import_pulls_in_no_jax():
     code = ("import sys, paddle_tpu_torch, paddle_tpu_torch.models, "
             "paddle_tpu_torch.bridge, paddle_tpu_torch.kernels, "
-            "paddle_tpu_torch.optimizer, paddle_tpu_torch.distributed\n"
+            "paddle_tpu_torch.optimizer, paddle_tpu_torch.distributed, "
+            "paddle_tpu_torch.core, paddle_tpu_torch.serving\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r})\n"
             "print(','.join(bad))")
@@ -141,3 +142,29 @@ def test_mamba_default_device_raises_without_cuda():
         pytest.skip("this host has a GPU: the default device is valid")
     with pytest.raises(RuntimeError):
         MambaForCausalLM(MambaConfig.tiny())
+
+
+def test_new_modules_are_covered():
+    """The serving engine, the host-side core copies and the kernel
+    modules of this slice are among the files the source check reads,
+    and the two new kernels have their counters and sources."""
+    names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
+    for rel in ("serving/engine.py", "serving/__init__.py", "core/flags.py",
+                "core/monitor.py", "core/trace.py", "core/fault.py",
+                "kernels/softmax_xent.py",
+                "kernels/paged_decode_attention.py"):
+        assert f"paddle_tpu_torch/{rel}" in names, rel
+    assert {"softmax_xent_lse": "softmax_xent",
+            "softmax_xent_dx": "softmax_xent",
+            "paged_decode_attention": "paged_decode_attention"}.items() <= \
+        _support.SOURCES.items()
+
+
+def test_engine_raises_without_cuda_by_default():
+    """The engine builds on its model's device: a default-device model
+    raises without a GPU before any engine exists."""
+    if torch.cuda.is_available():
+        pytest.skip("this host has a GPU: the default device is valid")
+    from paddle_tpu_torch.serving import GenerationEngine
+    with pytest.raises(RuntimeError):
+        GenerationEngine(LlamaForCausalLM(LlamaConfig.tiny()), slots=1)

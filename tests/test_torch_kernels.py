@@ -535,15 +535,23 @@ def test_cached_attention_matches_plain_arm(T):
 
 def test_cached_attention_chunk_past_index_raises_where_kernels_run(
         monkeypatch):
-    """A multi-token chunk at index > 0 has no kernel yet: where the
-    wrappers would launch kernels it raises instead of running the plain
-    version on the card."""
+    """A multi-token chunk at index > 0 (chunked prefill, a prefix-cache
+    hit) takes the JAX package's einsum arm where the wrappers would
+    launch kernels too (the JAX package runs no kernel there either): it
+    no longer raises, it launches nothing (B9's counter stays put), and it
+    matches the JAX arm within TOL."""
     from paddle_tpu_torch.models import _common as port_common
     monkeypatch.setattr(_support, "use_kernel", lambda x: True)
-    q, k = _t(_np(1, 3, 2, 64)), _t(_np(1, 3, 2, 64, seed=1))
-    cache = (_t(_np(1, 1, 2, 16, 64, seed=2)),) * 2
-    with pytest.raises(NotImplementedError):
-        port_common.cached_attention(q, k, k, cache, 5, layer=0)
+    q, k = _np(1, 3, 2, 64), _np(1, 3, 2, 64, seed=1)
+    cache = (_np(1, 1, 2, 16, 64, seed=2),) * 2
+    _support.reset_launches()
+    got, _ = port_common.cached_attention(_t(q), _t(k), _t(k),
+                                          tuple(map(_t, cache)), 5, layer=0)
+    assert all(n == 0 for n in _support.LAUNCHES.values())
+    want, _ = jax_common.cached_attention(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(k),
+        tuple(map(jnp.asarray, cache)), 5, layer=0)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
 
 
 def _int8_inputs(Hq, Hkv, L=2, S=128, seed=0):
