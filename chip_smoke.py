@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Fourteen phases; any failure exits non-zero and prints no result line.
+Fifteen phases; any failure exits non-zero and prints no result line.
 
 1. Card and build: requires CUDA, prints the card's name and power limit
    (``nvidia-smi``), builds every kernel source in ``paddle_tpu_torch/csrc``
@@ -85,6 +85,22 @@ Fourteen phases; any failure exits non-zero and prints no result line.
    training steps through ``build_train_step``: one B14 and one B15 a
    step, against the plain run, with the loss's logits rounded to bf16 as
    the control.
+15. The same Llama-2-7B served over the loopback wire: an
+   ``InferenceServer`` with the paged engine on the int8 pool (16 slots
+   of 4096 positions, 4096 pages of 16 tokens, prefill in chunks of 512,
+   the prefix cache on) and 24 requests from at most 8
+   ``InferenceClient`` threads, 40 ms apart: chat-like prompts, 8 sharing
+   a 1024-token system prompt, documents of 3000 and 3900 tokens, a
+   stream closed after 8 tokens (cancelled on the server) and a sampled
+   request streamed twice (equal streams). Exact launch counts (B10-int8
+   L a step; B10, B9 and B9-int8 none), every stream equal to its
+   generation on the server, prefix hits, the pool balanced, the health
+   op with a deep canary, tokens/s, TTFT per request, peak memory, the
+   step replayed at 16 slots at the phase's positions, its logits equal
+   to the same step through ``paged_gather`` and per-slot B9-int8 (max
+   abs 0), and B10-int8 against its plain version on the served pool at
+   that step's tables and positions (first, middle and last layer). Runs
+   after phase 13, on its model.
 
 Phase 2 also holds the fused head's three kernels (B11-B13) against their
 plain versions at the bench shape (N=8192, E=2048, V=32000), the 7B head
@@ -109,7 +125,10 @@ V=1024 and 2048 in fp32 and bf16 and a ragged N through
 rescaled, the last vocabulary block skipped, the one-hot term left out);
 B10 and per-slot B9 at the engine's step (8 slots, pages of 16, mixed
 positions; faults: the position pos unmasked, the page id off by one, the
-fresh token dropped).
+fresh token dropped), and B10-int8 at the same step on the int8 pool in
+bf16 and fp32 (the same faults and the int8 scales' wrong; relative L2 at
+the int8 decode probe's limit, which the JAX einsum arm's bf16 control
+must fail; equal to the gather + per-slot B9-int8 it replaces).
 
 The last two lines of standard output are a JSON line of per-kernel
 numbers and ``{"ok": true, "device": {...}}``. A fuller report goes to
@@ -198,6 +217,8 @@ REPLACES = {
     "softmax_xent_lse": "paddle_tpu/ops/pallas/softmax_xent.py:89",
     "softmax_xent_dx": "paddle_tpu/ops/pallas/softmax_xent.py:111",
     "paged_decode_attention":
+        "paddle_tpu/ops/pallas/paged_decode_attention.py:175",
+    "paged_decode_attention_int8":
         "paddle_tpu/ops/pallas/paged_decode_attention.py:175",
 }
 # the path whose launches the JSON line reports for each kernel: decode
@@ -329,6 +350,27 @@ ENGINE_LOGIT_LIMITS = LOGIT_LIMITS
 # of the pool so that the timed reads come from HBM.
 ENGINE_POS = (0, 5, 16, 17, 250, 511, 800, 1023)
 ENGINE_CASE_LAYERS = 8
+# B10-int8 against its plain version (phase 2, the same step on the int8
+# pool): held at KERNEL_ATOL + KERNEL_RTOL·|ref| in bf16 and fp32, and by
+# relative L2 error, at the decode probe's limit. The kernel and its plain
+# version round the same probabilities to q's type (csrc/
+# paged_decode_attention.cu), so they differ only where another fp32
+# summation order flips a rounding; the control, the JAX einsum arm's
+# attention over k and v dequantized to bf16 (einsum_arm_decode_int8),
+# rounds every logit and probability and must fail the limits that the
+# kernel passes.
+PAGED_INT8_REL_L2 = PROBE_LIMITS["decode int8 o"]
+# Phase 15: Llama-2-7B served over the loopback wire from the paged engine
+# on the int8 pool (B10-int8): 16 slots of 4096 positions, pages of 16
+# tokens, 4096 pages (every slot's full length), prefill in chunks of 512,
+# the prefix cache on. 24 requests from np.random.RandomState(15) arrive
+# SERVER_GAP_S apart, sent by at most 8 InferenceClient threads; the
+# batched step's logits with B10-int8 must equal the same step through
+# paged_gather and per-slot B9-int8 (max abs 0), and B10-int8 on the
+# served pool at that step must meet its plain version's limits above.
+SERVER_SLOTS, SERVER_MAX_LEN, SERVER_PAGE = 16, 4096, 16
+SERVER_PAGES, SERVER_CHUNK, SERVER_GAP_S = 4096, 512, 0.04
+SERVER_SOLO = 4            # greedy streams held against solo generate
 # B14/B15 against their plain versions: both compute in fp32 from the same
 # inputs (bf16 logits are exact in fp32), so lse and the fp32 gradient
 # agree to fp32 summation order (1e-5 of the largest value plus 1e-5 of
@@ -1262,27 +1304,35 @@ def xent_faults(x, labels, g):
 
 
 def paged_faults(q, kn, vn, pool, table, pos, layer):
-    """B10's plain version with one piece wrong: position ``pos[b]`` read
-    too (the mask one position late), every page id one higher, the
-    fresh token left out of the softmax."""
+    """B10's plain version (either pool layout) with one piece wrong:
+    position ``pos[b]`` read too (the mask one position late), every page
+    id one higher, the fresh token left out of the softmax; for the int8
+    pool also ``int8_faults``' wrong scales."""
     from paddle_tpu_torch.kernels import paged_decode_attention as PDA
     plain = PDA.paged_decode_attention_reference
     B, _, Hq, D = q.shape
-    kc, vc = PDA.gather_layer(pool, table, layer)       # [1, B, Hkv, S, D]
-    Hkv, S = kc.shape[2], kc.shape[3]
+    view = PDA.gather_layer(pool, table, layer)         # [1, B, Hkv, S, ...]
+    kc, vc = (v[0].float() for v in view[:2])
+    if len(pool) == 4:                                  # dequantized
+        kc, vc = kc * view[2][0][..., None], vc * view[3][0][..., None]
+    Hkv, S = kc.shape[1], kc.shape[2]
     qh = q.float().reshape(B, Hkv, Hq // Hkv, D)
-    s = torch.einsum("bkgd,bksd->bkgs", qh, kc[0].float()) / math.sqrt(D)
+    s = torch.einsum("bkgd,bksd->bkgs", qh, kc) / math.sqrt(D)
     keep = torch.arange(S, device=q.device)[None] < pos.long()[:, None]
     s = s.masked_fill(~keep[:, None, None], -math.inf)
     no_fresh = torch.einsum("bkgs,bksd->bkgd", torch.softmax(s, -1),
-                            vc[0].float()).reshape(B, 1, Hq, D).to(q.dtype)
+                            vc).reshape(B, 1, Hq, D).to(q.dtype)
     N = pool[0].shape[0] - 1
-    return {"position pos unmasked": plain(q, kn, vn, pool, table, pos + 1,
-                                           layer),
-            "page id off by one": plain(q, kn, vn, pool,
-                                        (table + 1).clamp(max=N), pos,
-                                        layer),
-            "fresh token dropped": no_fresh}
+    faults = {"position pos unmasked": plain(q, kn, vn, pool, table,
+                                             pos + 1, layer),
+              "page id off by one": plain(q, kn, vn, pool,
+                                          (table + 1).clamp(max=N), pos,
+                                          layer),
+              "fresh token dropped": no_fresh}
+    if len(pool) == 4:
+        for fault, bad in int8_faults(pool).items():
+            faults[fault] = plain(q, kn, vn, bad, table, pos, layer)
+    return faults
 
 
 def engine_requests(vocab: int):
@@ -1358,17 +1408,176 @@ def serve_engine(engine, requests, cancel: int | None = None):
     return out, time.perf_counter() - t0
 
 
-def engine_expected(engine, L: int, paged: bool) -> dict:
+def engine_expected(engine, L: int, paged: bool,
+                    step_kernel: str | None = None) -> dict:
     """The launches an engine's run implies: per prefill forward RMSNorm
     2L + 1 and RoPE 2L, flash L where it ran at index 0; per batched step
     (each replay, and the warm-up before the capture) RMSNorm 2L + 1,
-    RoPE 2L and L of the step's attention kernel (B10 paged, B9 else)."""
+    RoPE 2L and L of the step's attention kernel (``step_kernel``, else
+    B10 paged, B9 contiguous)."""
     st = engine.stats()
     fwd = st["prefill_calls"] + st["decode_steps"] + 1
+    step_kernel = step_kernel or ("paged_decode_attention" if paged
+                                  else "decode_attention")
     return {"rms_norm": (2 * L + 1) * fwd, "rope": 2 * L * fwd,
             "flash_attention": L * st["prefill_calls_fresh"],
-            ("paged_decode_attention" if paged else "decode_attention"):
-                L * (st["decode_steps"] + 1)}
+            step_kernel: L * (st["decode_steps"] + 1)}
+
+
+def server_requests(vocab: int):
+    """Phase 15's traffic, from ``np.random.RandomState(15)``: 12
+    chat-like prompts of 64-512 tokens with 64-128 new tokens, 8 that
+    share a 1024-token system prompt then 32-256 tokens of their own with
+    64 new, 2 documents of 3000 and 3900 tokens with 64 new, one stream
+    (128 tokens, 64 new) closed after 8 tokens, and one sampled request
+    (16 tokens, 64 new, temperature 0.8, top-p 0.9) streamed twice: a
+    prompt of one page, which the prefix cache never matches (a match
+    leaves a token to prefill), so that both streams prefill it alike.
+    Returns dicts in arrival order: the first sharer first, two more
+    among the first 16 and the other five last, so that they arrive once
+    its prefill has registered the shared pages."""
+    rs = np.random.RandomState(15)
+
+    def ids(n):
+        return rs.randint(0, vocab, (int(n),)).astype(np.int32)
+
+    chat = [{"prompt": ids(rs.randint(64, 513)),
+             "new": int(rs.randint(64, 129))} for _ in range(12)]
+    system = ids(1024)
+    shared = [{"prompt": np.concatenate([system, ids(rs.randint(32, 257))]),
+               "new": 64, "shared": True} for _ in range(8)]
+    docs = [{"prompt": ids(n), "new": 64} for n in (3000, 3900)]
+    cancel = {"prompt": ids(128), "new": 64, "cancel_after": 8}
+    sampled = {"prompt": ids(16), "new": 64, "sampled": True}
+    order = ([shared[0], chat[0], docs[0], cancel, chat[1], docs[1],
+              sampled] + chat[2:7] + [shared[1]] + chat[7:10]
+             + [shared[2]] + chat[10:] + shared[3:])
+    assert len(order) == 24
+    return order
+
+
+def serve_wire(endpoint, requests, model_name="llama"):
+    """Phase 15's clients over the loopback wire: 6 threads stream the
+    plain requests (request i by thread i % 6, each thread starting its
+    requests when due and polling its live generations in turn between
+    starts, the first of each round as a long poll of up to 50 ms that
+    returns at the engine's next emitted token, so that the clients wait
+    in the server instead of spinning on the host's cores beside the
+    engine's loop), one streams the cancelled request through
+    ``InferenceClient.generate`` and closes it after ``cancel_after``
+    tokens, one streams the sampled request twice, one after the other.
+    Request i starts SERVER_GAP_S·i after the first. Returns per request
+    its tokens (both streams for the sampled one), gen id, error, time to
+    first token and end (s), and the wall time."""
+    import threading
+
+    from paddle_tpu_torch.io import InferenceClient
+    out = [None] * len(requests)
+    t0 = time.perf_counter()
+
+    def due(i):
+        time.sleep(max(0.0, t0 + SERVER_GAP_S * i - time.perf_counter()))
+
+    def plain(mine):
+        pending, live = list(mine), []
+        with InferenceClient(endpoint, timeout=600.0) as c:
+            deadline = time.perf_counter() + 600
+            while (pending or live) and time.perf_counter() < deadline:
+                # start what is due; between starts, poll what is live
+                while pending and (time.perf_counter()
+                                   >= t0 + SERVER_GAP_S * pending[0]):
+                    i = pending.pop(0)
+                    ts = time.perf_counter()
+                    gid = c.generate_start(model_name,
+                                           requests[i]["prompt"],
+                                           requests[i]["new"])
+                    out[i] = {"gen_id": gid, "tokens": [], "error": None,
+                              "ttft_s": None, "end_s": None, "t_start": ts}
+                    live.append(i)
+                if not live:
+                    due(pending[0])
+                    continue
+                wait = 0.05
+                if pending:
+                    wait = min(wait, max(0.0, t0 + SERVER_GAP_S * pending[0]
+                                         - time.perf_counter()))
+                for k, i in enumerate(list(live)):
+                    o = out[i]
+                    doc = c.generate_poll(model_name, o["gen_id"],
+                                          start=len(o["tokens"]),
+                                          wait_s=wait if k == 0 else 0.0)
+                    if doc["tokens"]:
+                        if o["ttft_s"] is None:
+                            o["ttft_s"] = time.perf_counter() - o["t_start"]
+                        o["tokens"] += doc["tokens"]
+                    if doc["done"]:
+                        o["error"] = doc["error"]
+                        o["end_s"] = time.perf_counter() - t0
+                        live.remove(i)
+            for i in live:
+                out[i]["error"] = "timed out"
+
+    def streamed(i):
+        r = requests[i]
+        due(i)
+        with InferenceClient(endpoint, timeout=600.0) as c:
+            ts = time.perf_counter()
+            if "cancel_after" in r:
+                it = c.generate(model_name, r["prompt"], r["new"],
+                                poll_wait_s=0.05)
+                toks = [next(it)]
+                ttft = time.perf_counter() - ts
+                toks += [next(it) for _ in range(r["cancel_after"] - 1)]
+                it.close()                 # cancels on the server
+                out[i] = {"tokens": toks, "error": "cancelled",
+                          "ttft_s": ttft, "end_s": time.perf_counter() - t0}
+                return
+            streams, ttft = [], None
+            for _ in range(2):
+                it = c.generate(model_name, r["prompt"], r["new"],
+                                temperature=0.8, top_p=0.9, seed=SEED,
+                                poll_wait_s=0.05)
+                streams.append([next(it)])
+                ttft = ttft or time.perf_counter() - ts
+                streams[-1] += list(it)
+            out[i] = {"tokens": streams[0], "second": streams[1],
+                      "error": None, "ttft_s": ttft,
+                      "end_s": time.perf_counter() - t0}
+
+    special = [i for i, r in enumerate(requests)
+               if "cancel_after" in r or r.get("sampled")]
+    rest = [i for i in range(len(requests)) if i not in special]
+    threads = [threading.Thread(target=plain, args=(rest[k::6],))
+               for k in range(6)]
+    threads += [threading.Thread(target=streamed, args=(i,))
+                for i in special]
+    assert len(threads) <= 8
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=660)
+    return out, time.perf_counter() - t0
+
+
+def gather_step(engine, model):
+    """The engine's batched step as the JAX engine runs it: the slots'
+    pages gathered into a stacked cache (every leaf: the int8 pool's
+    scales too), one slot at a time into the preallocated view, then the
+    per-slot decode kernel (B9, or B9-int8). Its last logits [slots,
+    V]."""
+    from paddle_tpu_torch.models.generation import paged_gather
+    table = engine._pt_buf
+    view = []
+    for leaf in engine._cache:
+        out = torch.empty((leaf.shape[1], table.shape[0], leaf.shape[2],
+                           table.shape[1] * leaf.shape[3])
+                          + tuple(leaf.shape[4:]), dtype=leaf.dtype,
+                          device=leaf.device)
+        for b, row in enumerate(table):
+            out[:, b] = paged_gather((leaf,), row)[0][:, 0]
+        view.append(out)
+    return model.forward_with_cache(engine._tok_buf, tuple(view),
+                                    engine._pos_buf)[0][:, -1]
 
 
 def time_replay(engine, reps: int = 7, inner: int = 10) -> float:
@@ -2388,7 +2597,6 @@ def main() -> int:
     # scalar form run slot by slot (bit-equal expected: the same kernel
     # arithmetic at another batch offset) and its plain version.
     from paddle_tpu_torch.kernels import paged_decode_attention as PDA
-    from paddle_tpu_torch.models.generation import paged_gather
     gen10 = make_generator(SEED + 10, dev)
     SL, P, Lw, H, D = ENGINE_SLOTS, ENGINE_PAGE, ENGINE_CASE_LAYERS, 32, 128
     M = ENGINE_MAX_LEN // P
@@ -2446,6 +2654,109 @@ def main() -> int:
         f"{rows[-1]['gather_b9_ms']:.4f} ms, max abs difference from B10 "
         f"{rows[-1]['gather_b9_max_abs_diff']:.3e}")
     del want, got_b10
+    # B10-int8: the same step on the int8 pool, int8 k/v quantized from
+    # bf16 of per-position magnitudes 0.3-3 with their fp32 scales (its
+    # own generator: the cases above keep their inputs). bf16 (timed: the
+    # JSON line's row) and fp32 against the plain version, B10's and the
+    # int8 scales' planted faults failing that check; relative L2 error at
+    # PAGED_INT8_REL_L2, which the einsum arm's bf16 control must fail;
+    # timed beside SDPA over the dequantized bf16 prefix plus the new k/v
+    # (a yardstick: it reads bf16, not the int8 pool, so library_ms is
+    # null) and beside the gather + per-slot B9-int8 it replaces, whose
+    # output must equal B10-int8's bit for bit.
+    gen10i = make_generator(SEED + 15, dev)
+    NP = SL * M + 1
+    raw = [(torch.randn(NP * Lw, H, P, D, generator=gen10i, device=dev)
+            * (0.3 + 2.7 * torch.rand(NP * Lw, H, P, 1, generator=gen10i,
+                                      device=dev))).to(bf16)
+           for _ in range(2)]
+    (kq, ks), (vq, vs) = (_quant_chunk(r) for r in raw)
+    del raw
+    pool8 = tuple(t.reshape(NP, Lw, *t.shape[1:]) for t in (kq, vq, ks, vs))
+    del kq, vq, ks, vs
+    q8 = torch.randn(SL, 1, H, D, generator=gen10i, device=dev)
+    kn8, vn8 = (torch.randn(SL, H, 1, D, generator=gen10i, device=dev)
+                for _ in range(2))
+    for dt in (bf16, torch.float32):
+        qi, kni, vni = (t.to(dt) for t in (q8, kn8, vn8))
+        timed = dt == bf16
+        case("paged_decode_attention_int8", "7B",
+             f"pool int8[{NP},{Lw},{H},{P},{D}] {SL} slots pos {fill} "
+             f"{str(dt).split('.')[-1]}",
+             layer_walk(lambda lay: PDA.paged_decode_attention(
+                 qi, kni, vni, pool8, table, pos, lay), Lw),
+             layer_walk(lambda lay: PDA.paged_decode_attention_reference(
+                 qi, kni, vni, pool8, table, pos, lay), Lw),
+             2 * H * fill * (D + 4) + (2 * qi.numel() + 2 * kni.numel())
+             * qi.element_size() + table.numel() * 4 + SL * 4,
+             4 * H * D * (fill + SL), timed=timed)
+        row = rows[-1]
+        got = PDA.paged_decode_attention(qi, kni, vni, pool8, table, pos, 0)
+        want = PDA.paged_decode_attention_reference(qi, kni, vni, pool8, table,
+                                                    pos, 0)
+        view8 = PDA.gather_layer(pool8, table, 0)
+        ctrl = einsum_arm_decode_int8(qi, kni, vni, view8, 0, pos,
+                                      scale=1.0 / math.sqrt(D))
+        row["rel_l2"] = _rel_l2(got, want)
+        row["control_rel_l2"] = _rel_l2(ctrl, want)
+        ctrl_elem = bool(((ctrl.float() - want.float()).abs() <= KERNEL_ATOL
+                          + KERNEL_RTOL * want.float().abs()).all())
+        row["control_passes_elementwise"] = ctrl_elem
+        log(f"    paged_decode_attention_int8 relative L2 {row['rel_l2']:.3e}"
+            f", the einsum arm's bf16 control {row['control_rel_l2']:.3e} "
+            f"(limit {PAGED_INT8_REL_L2}; the control passes the element "
+            f"check: {ctrl_elem})")
+        if row["rel_l2"] > PAGED_INT8_REL_L2:
+            failures.append(f"paged_decode_attention_int8 {dt}: relative "
+                            f"L2 {row['rel_l2']} over {PAGED_INT8_REL_L2}")
+        # in fp32 the einsum arm rounds nothing: the control is bf16's
+        if timed and row["control_rel_l2"] <= PAGED_INT8_REL_L2 \
+                and ctrl_elem:
+            failures.append(f"paged_decode_attention_int8 {dt}: the bf16 "
+                            f"control passes the limits "
+                            f"({row['control_rel_l2']})")
+        if not timed:
+            del got, want, ctrl, view8
+            continue
+        faults = {}
+        for fault, bad in paged_faults(qi, kni, vni, pool8, table, pos,
+                                       0).items():
+            diff = (bad.float() - want.float()).abs()
+            faults[fault] = diff.max().item()
+            if bool((diff <= KERNEL_ATOL + KERNEL_RTOL
+                     * want.float().abs()).all()):
+                failures.append(f"paged_decode_attention_int8: the planted "
+                                f"fault '{fault}' passes the check")
+        row["faults_max_abs"] = faults
+        qs, kv = qi.transpose(1, 2), []
+        for lay in range(Lw):
+            kc, vc, ksc, vsc = PDA.gather_layer(pool8, table, lay)
+            kv.append((torch.cat([kc[0].to(bf16) * ksc[0].to(bf16)[..., None],
+                                  kni], 2),
+                       torch.cat([vc[0].to(bf16) * vsc[0].to(bf16)[..., None],
+                                  vni], 2)))
+        row["sdpa_dequantized_bf16_ms"] = time_ms(layer_walk(
+            lambda lay: sdpa(qs, *kv[lay], attn_mask=mask), Lw))
+        del kv
+
+        def gather_then_b9_int8(lay):
+            return DA.decode_attention(qi, kni, vni,
+                                       PDA.gather_layer(pool8, table, lay),
+                                       0, pos)
+        row["gather_b9_ms"] = time_ms(layer_walk(gather_then_b9_int8, Lw))
+        row["gather_b9_equal"] = bool(torch.equal(gather_then_b9_int8(0),
+                                                  got))
+        log(f"    paged_decode_attention_int8 planted faults' max abs error "
+            f"(must fail the check): {faults}; SDPA over the dequantized "
+            f"bf16 prefix {row['sdpa_dequantized_bf16_ms']:.4f} ms "
+            f"(yardstick); paged_gather + per-slot B9-int8 "
+            f"{row['gather_b9_ms']:.4f} ms, equal to B10-int8: "
+            f"{row['gather_b9_equal']}")
+        if not row["gather_b9_equal"]:
+            failures.append("paged_decode_attention_int8: not equal to "
+                            "paged_gather + per-slot B9-int8")
+        del got, want, ctrl, view8
+    del pool8, q8, kn8, vn8
     # per-slot B9 over the stacked cache of the same positions (S = 1024),
     # float and int8
     kc = torch.randn(Lw, SL, H, ENGINE_MAX_LEN, D, generator=gen10,
@@ -2635,18 +2946,13 @@ def main() -> int:
         rep["decode_graph_ms"] = time_replay(eng)
         rep["decode_graph_ctx"] = ctx
         # the same step as the JAX engine runs it: the slots' pages
-        # gathered into a stacked cache, then per-slot B9 (a graph too)
-        def gather_step():
-            view = tuple(torch.stack([paged_gather(eng._cache, r)[i][:, 0]
-                                      for r in eng._pt_buf], 1)
-                         for i in range(2))
-            return model.forward_with_cache(eng._tok_buf, view,
-                                            eng._pos_buf)[0][:, -1]
+        # gathered into a stacked cache, then per-slot B9
         b10_logits = eng._step_logits().float()
-        gb9_logits = gather_step().float()
+        gb9_logits = gather_step(eng, model).float()
         rep["b10_vs_gather_b9"] = compare_logits(b10_logits[:, None],
                                                  gb9_logits[:, None])
-        rep["gather_b9_step_ms"] = time_ms(gather_step, reps=5, inner=2)
+        rep["gather_b9_step_ms"] = time_ms(lambda: gather_step(eng, model),
+                                           reps=5, inner=2)
         log(f"paged_engine decode step replayed as a CUDA graph at "
             f"{ENGINE_SLOTS} slots of {ctx} positions: "
             f"{rep['decode_graph_ms']:.3f} ms; the step with paged_gather + "
@@ -2683,6 +2989,190 @@ def main() -> int:
     rep["phase_s"] = time.perf_counter() - t
     del got, want, ctrl
     torch.cuda.empty_cache()
+    # ------------- 15. the generation server over the wire, int8 pool
+    # phase 3's model behind an InferenceServer on the loopback wire: the
+    # paged engine on the int8 pool, 16 slots of 4096 positions, pages of
+    # 16 tokens, 4096 pages, prefill in chunks of 512, the prefix cache
+    # on; 24 requests from at most 8 client threads (server_requests)
+    from paddle_tpu_torch.io import InferenceClient, InferenceServer
+    t = time.perf_counter()
+    requests15 = server_requests(cfg.vocab_size)
+    srv = InferenceServer(host="127.0.0.1", port=0).start()
+    srv.add_generator("llama", model, slots=SERVER_SLOTS,
+                      max_len=SERVER_MAX_LEN, paged=True,
+                      page_tokens=SERVER_PAGE, pages=SERVER_PAGES,
+                      prefill_chunk=SERVER_CHUNK, prefix_cache=True,
+                      cache_dtype=torch.int8, queue_max=0, ttl_s=0)
+    eng = srv._generator("llama")
+    try:
+        # warm the prefill and capture the step, then start the books
+        with InferenceClient(srv.endpoint, timeout=600.0) as c:
+            for r in requests15[1:3]:
+                list(c.generate("llama", r["prompt"][:16], 2))
+        eng.clear_prefix_cache()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _support.reset_launches()
+        eng.decode_steps = eng.prefill_calls = eng.prefill_calls_fresh = 0
+        hits0 = get_stat("gen/prefix_hits")
+        evict0 = get_stat("gen/evictions")
+        out15, wall = serve_wire(srv.endpoint, requests15)
+        torch.cuda.synchronize()
+        launches15 = dict(_support.LAUNCHES)
+        expected = dict.fromkeys(launches15, 0)
+        expected.update(engine_expected(
+            eng, L, paged=True, step_kernel="paged_decode_attention_int8"))
+        expected["paged_decode_attention_int8"] -= L    # captured in warm-up
+        expected["rms_norm"] -= 2 * L + 1
+        expected["rope"] -= 2 * L
+        run.vocab = cfg.vocab_size
+        for o, r in zip(out15, requests15):
+            o.update(prompt=len(r["prompt"]), new_tokens=r["new"])
+        rep = engine_report("server", "Llama-2-7B served over the wire, "
+                            "paged int8 pool", eng, out15, wall,
+                            launches15, expected, run)
+        st = rep["stats"]
+        rep["prefix_hits"] = get_stat("gen/prefix_hits") - hits0
+        rep["server_side_cancels"] = get_stat("gen/evictions") - evict0
+        rep["pages_balanced"] = (st["pages_free"] + st["prefix_entries"]
+                                 == st["pages"])
+        rep["pool_bytes"] = st["device"]["kv_bytes"]
+        # each stream over the wire is the server's generation
+        mismatched = [i for i, o in enumerate(out15) if "gen_id" in o
+                      and o["tokens"] != eng._gens[o["gen_id"]].tokens]
+        sampled = next(o for o in out15 if "second" in o)
+        rep["streams_equal_server"] = not mismatched
+        rep["sampled_streams_equal"] = sampled["tokens"] == sampled["second"]
+        health = InferenceClient(srv.endpoint, timeout=600.0)
+        try:
+            h = health.health(deep=True)["generators"]["llama"]
+        finally:
+            health.close()
+        rep["health"] = {k: h[k] for k in ("pages_free", "pages",
+                                           "prefix_entries",
+                                           "tokens_per_step", "device",
+                                           "engine")}
+        log(f"server: {rep['prefix_hits']} prefix hits, "
+            f"{rep['server_side_cancels']} cancel(s) on the server; pool "
+            f"{rep['pool_bytes'] / 1e9:.2f} GB int8, pages_free "
+            f"{st['pages_free']} + prefix_entries {st['prefix_entries']} "
+            f"== pages {st['pages']}: {rep['pages_balanced']}; streams "
+            f"equal the server's: {rep['streams_equal_server']}; sampled "
+            f"streams equal: {rep['sampled_streams_equal']}; health "
+            f"{rep['health']}")
+        if (rep["prefix_hits"] < 1 or not rep["pages_balanced"]
+                or rep["server_side_cancels"] != 1):
+            failures.append(f"server: prefix hits {rep['prefix_hits']}, "
+                            f"cancels {rep['server_side_cancels']}, pool "
+                            f"balanced {rep['pages_balanced']}: {st}")
+        if mismatched or not rep["sampled_streams_equal"]:
+            failures.append(f"server: streams {mismatched} differ from the "
+                            "server's tokens, or the sampled streams differ")
+        if not h["engine"]["ok"] or h["pages"] != SERVER_PAGES:
+            failures.append(f"server: health {rep['health']}")
+        # the batched step at 16 active slots at the phase's positions (the
+        # first 16 requests halfway through their new tokens), each slot's
+        # table a run of a random permutation of the served pool's pages
+        # (the pages the traffic wrote and those it never reached, in no
+        # order), replayed as a graph; then its logits against the same
+        # step through paged_gather + per-slot B9-int8, which must be
+        # equal
+        gen15 = make_generator(SEED + 16, dev)
+        Ms = SERVER_MAX_LEN // SERVER_PAGE
+        step_pos = [len(r["prompt"]) + r["new"] // 2
+                    for r in requests15[:SERVER_SLOTS]]
+        tables = (torch.randperm(SERVER_PAGES, generator=gen15, device=dev)
+                  + 1)[:SERVER_SLOTS * Ms].reshape(SERVER_SLOTS, Ms)
+        set_step_state(eng, step_pos, tables)
+        rep["decode_graph_ms"] = time_replay(eng)
+        rep["decode_graph_pos"] = step_pos
+        weight_bytes = sum(p.numel() * p.element_size()
+                           for p in model.parameters())
+        rep["decode_bound_ms"] = (weight_bytes + sum(step_pos) * L
+                                  * cfg.num_kv_heads * 2
+                                  * (cfg.head_dim + 4)) / HBM_BYTES_PER_S * 1e3
+        b10 = eng._step_logits().float()
+        gb9 = gather_step(eng, model).float()
+        rep["b10_int8_vs_gather_b9_int8_max_abs"] = (
+            b10 - gb9).abs().max().item()
+        rep["b10_int8_step_finite"] = bool(torch.isfinite(b10).all())
+        log(f"server decode step replayed as a CUDA graph at "
+            f"{SERVER_SLOTS} slots, positions {step_pos}: "
+            f"{rep['decode_graph_ms']:.3f} ms (weights and int8 cache bound "
+            f"{rep['decode_bound_ms']:.3f} ms); its logits against "
+            f"paged_gather + per-slot B9-int8: max abs "
+            f"{rep['b10_int8_vs_gather_b9_int8_max_abs']}")
+        if rep["b10_int8_vs_gather_b9_int8_max_abs"] != 0 \
+                or not rep["b10_int8_step_finite"]:
+            failures.append("server: the step's logits with B10-int8 differ "
+                            "from paged_gather + per-slot B9-int8 (max abs "
+                            f"{rep['b10_int8_vs_gather_b9_int8_max_abs']})")
+        del b10, gb9
+        # B10-int8 against its plain version at the shapes this path gives
+        # it: the served pool, the step's tables and positions (walks of up
+        # to 3,932 positions through 246 table entries), bf16 q and fresh
+        # k/v, at the first, middle and last layer; held at KERNEL_ATOL +
+        # KERNEL_RTOL·|ref| and at PAGED_INT8_REL_L2. written_share: the
+        # share of the walked positions whose k scale is not 0 (pages the
+        # traffic wrote). The einsum arm's bf16 control is recorded.
+        q15 = torch.randn(SERVER_SLOTS, 1, cfg.num_heads, cfg.head_dim,
+                          generator=gen15, device=dev).to(bf16)
+        kn15, vn15 = (torch.randn(SERVER_SLOTS, cfg.num_kv_heads, 1,
+                                  cfg.head_dim, generator=gen15,
+                                  device=dev).to(bf16) for _ in range(2))
+        walked = (torch.arange(Ms * SERVER_PAGE, device=dev)[None]
+                  < eng._pos_buf.long()[:, None])
+        rep["b10_int8_vs_plain"] = {}
+        for lay in sorted({0, L // 2, L - 1}):
+            args = (q15, kn15, vn15, eng._cache, eng._pt_buf, eng._pos_buf,
+                    lay)
+            got = PDA.paged_decode_attention(*args)
+            want = PDA.paged_decode_attention_reference(*args)
+            diff = (got.float() - want.float()).abs()
+            ks15 = PDA.gather_layer(eng._cache[2:3], eng._pt_buf, lay)[0][0]
+            chk = {"max_abs_err": diff.max().item(),
+                   "rel_l2": _rel_l2(got, want),
+                   "within": bool((diff <= KERNEL_ATOL + KERNEL_RTOL
+                                   * want.float().abs()).all()),
+                   "written_share": ((ks15 != 0) & walked[:, None]).sum()
+                   .item() / (walked.sum().item() * cfg.num_kv_heads)}
+            if lay == 0:
+                ctrl = einsum_arm_decode_int8(
+                    q15, kn15, vn15,
+                    PDA.gather_layer(eng._cache, eng._pt_buf, 0), 0,
+                    eng._pos_buf, scale=1.0 / math.sqrt(cfg.head_dim))
+                chk["control_rel_l2"] = _rel_l2(ctrl, want)
+                del ctrl
+            rep["b10_int8_vs_plain"][lay] = chk
+            if not chk["within"] or chk["rel_l2"] > PAGED_INT8_REL_L2 \
+                    or not bool(torch.isfinite(got).all()):
+                failures.append(f"server: B10-int8 disagrees with its plain "
+                                f"version at layer {lay}: {chk}")
+            del got, want, diff, ks15
+        log(f"server B10-int8 against its plain version on the served pool "
+            f"at the step's tables and positions (bf16; limits "
+            f"{KERNEL_ATOL}+{KERNEL_RTOL}*|ref| and relative L2 "
+            f"{PAGED_INT8_REL_L2}): {rep['b10_int8_vs_plain']}")
+    finally:
+        srv.stop()
+    del eng, srv                  # the pool and the graph's memory
+    torch.cuda.empty_cache()
+    # greedy agreement with solo int8 generate, recorded (chunks after the
+    # first run the einsum arm in the engine, flash in solo generate)
+    greedy = [(r, o) for r, o in zip(requests15, out15)
+              if "gen_id" in o and o["error"] is None][:SERVER_SOLO]
+    solo15 = []
+    for r, o in greedy:
+        ids = torch.as_tensor(r["prompt"], dtype=torch.long, device=dev)[None]
+        solo15.append(model.generate(ids, len(o["tokens"]),
+                                     cache_dtype=torch.int8)[
+            0, len(r["prompt"]):].tolist())
+    rep["greedy_vs_solo_int8"] = greedy_agreement([o for _, o in greedy],
+                                                  solo15)
+    log(f"server greedy tokens equal to solo int8 generate (first "
+        f"{SERVER_SOLO} requests, recorded): {rep['greedy_vs_solo_int8']}")
+    rep["phase_s"] = time.perf_counter() - t
+    log(f"server phase: {rep['phase_s']:.1f} s")
     del model, seq3, seq11
     torch.cuda.empty_cache()
 
@@ -2891,6 +3381,8 @@ def main() -> int:
                          else int8_launches if name == "decode_attention_int8"
                          else dense_launches if name in XENT_KERNELS
                          else launches13 if name == "paged_decode_attention"
+                         else launches15
+                         if name == "paged_decode_attention_int8"
                          else train_launches if name in TRAIN_KERNELS
                          else launches)[name],
             "launches_by_path": {"serving": launches[name],
@@ -2905,6 +3397,7 @@ def main() -> int:
                                  "int8_serving": int8_launches[name],
                                  "engine": launches12[name],
                                  "paged_engine": launches13[name],
+                                 "server": launches15[name],
                                  "dense_loss": dense_launches[name]},
             "max_abs_err": max(r["max_abs_err"] for r in rows
                                if r["kernel"] == name),

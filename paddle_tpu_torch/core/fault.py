@@ -1,6 +1,14 @@
 """Deterministic, flag-gated fault injection — the port's copy of
-``paddle_tpu/core/fault.py``. Code paths name injection sites
-(``engine.prefill``, ``engine.decode_step``, ``paged.alloc``);
+``paddle_tpu/core/fault.py``. Code paths name injection sites:
+
+    ``wire.send`` / ``wire.recv``   — a FrameClient request's round trip
+                                      (core/wire.py), before the send and
+                                      after the reply
+    ``engine.prefill``              — GenerationEngine prefill, whole and
+                                      chunked (serving/engine.py)
+    ``engine.decode_step``          — the batched decode step
+    ``paged.alloc``                 — page-pool allocation at admission
+
 ``FLAGS_fault_inject`` or :class:`inject_faults` arms them with a
 probability and an optional fire cap, drawn from a per-site RNG seeded
 from ``FLAGS_fault_seed``. Off by default: :func:`inject` is then one
@@ -14,8 +22,8 @@ import threading
 
 from paddle_tpu_torch.core.monitor import stat_add
 
-__all__ = ["InjectedFault", "inject", "configure", "inject_faults",
-           "parse_spec"]
+__all__ = ["InjectedFault", "inject", "enabled", "configure", "reset",
+           "inject_faults", "parse_spec", "site_counts"]
 
 
 class InjectedFault(ConnectionError):
@@ -74,6 +82,27 @@ def configure(spec, seed: int | None = None) -> None:
         _ACTIVE = ({site: _Site(site, prob, limit, seed)
                     for site, (prob, limit) in parsed.items()}
                    if parsed else None)
+
+
+def reset() -> None:
+    """Turn injection off (the default)."""
+    global _ACTIVE
+    with _lock:
+        _ACTIVE = None
+
+
+def enabled() -> bool:
+    return _ACTIVE is not None
+
+
+def site_counts() -> dict[str, tuple[int, int]]:
+    """``{site: (hits, fired)}`` of the active configuration (empty when
+    off)."""
+    active = _ACTIVE
+    if active is None:
+        return {}
+    with _lock:
+        return {s.name: (s.hits, s.fired) for s in active.values()}
 
 
 def inject(site: str) -> None:

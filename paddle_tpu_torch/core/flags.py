@@ -1,8 +1,10 @@
 """Global flag registry — the port's copy of ``paddle_tpu/core/flags.py``
-(``define_flag``/``set_flags``/``get_flags``/``flag``), holding the flags
-the serving engine reads (``:162-250, 255-420``) and the tracing and
-fault-injection flags (``:610-690``). A flag is also read from the
-environment as ``FLAGS_<name>`` when it is defined."""
+(``define_flag``/``set_flags``/``get_flags``/``flag``), holding the frame
+protocol's fault-tolerance and overload flags (``:101-129``), the flags
+the serving engine reads (``:162-250, 255-420``), the request ledger's
+(``:302-320``) and the tracing and fault-injection flags (``:610-690``).
+A flag is also read from the environment as ``FLAGS_<name>`` when it is
+defined."""
 
 from __future__ import annotations
 
@@ -76,6 +78,36 @@ def flag(name: str) -> Any:
     return _REGISTRY[name].value
 
 
+# --- the frame protocol (core/wire.py): client deadline and retries ---
+define_flag("wire_timeout_s", 60.0,
+            "Connect + per-request deadline for frame-protocol clients. "
+            "<= 0 disables the deadline")
+define_flag("wire_retries", 2,
+            "Retry budget for idempotent wire requests after a connection "
+            "failure or timeout (transparent reconnect between attempts); "
+            "also the budget of retries after a shed. 0 disables retry")
+define_flag("wire_backoff_s", 0.05,
+            "Base of the exponential retry backoff (doubles per attempt, "
+            "+/-50% jitter)")
+define_flag("wire_backoff_max_s", 2.0,
+            "Cap on a single retry backoff sleep")
+# --- server-side overload protection (core/wire.py FrameService) ---
+define_flag("wire_max_inflight", 0,
+            "Cap on concurrent in-flight requests per FrameService; excess "
+            "requests are shed fast with the retryable status code 2 "
+            "(header carries retry_after_s). 0 = unlimited")
+define_flag("wire_max_conns", 0,
+            "Cap on accepted connections per FrameService; an over-cap "
+            "connection gets one shed frame (code 2, closing) in reply to "
+            "its first request and is closed. 0 = unlimited")
+define_flag("wire_server_idle_s", 0.0,
+            "Per-connection server idle timeout: a client silent this long "
+            "is reaped (wire/idle_closed stat). 0 = off")
+define_flag("wire_drain_s", 5.0,
+            "Graceful-drain deadline of the wire 'stop' op and a replica's "
+            "SIGTERM: stop accepting, let in-flight requests finish for "
+            "this many seconds, then sever")
+
 # --- continuous-batching generation engine (serving/engine.py) ---
 define_flag("gen_slots", 0,
             "Slot count of the GenerationEngine: one fixed-shape batched "
@@ -116,10 +148,22 @@ define_flag("gen_watchdog_s", 0.0, "Stuck-step watchdog period")
 define_flag("gen_spec_k", 0, "Speculative-decoding draft length")
 define_flag("gen_async_depth", 0, "Decode dispatch lookahead depth")
 define_flag("gen_mesh_tp", 0, "Tensor-parallel degree of the engine")
-define_flag("gen_ledger", False, "Per-request latency ledger")
 define_flag("gen_kv_store", False, "Fleet-wide KV page store")
 define_flag("gen_role", "both", "Replica serving role")
 define_flag("gen_sched", False, "SLO-aware tenant-fair scheduler")
+# --- performance attribution (serving/ledger.py) ---
+define_flag("gen_ledger", False,
+            "Per-request latency ledger + engine goodput accounting + "
+            "per-tenant attribution (serving/ledger.py): a finalized phase "
+            "record per generation (admit-wait / prefill / decode / "
+            "deliver, partitioning its end-to-end latency), the loop's wall "
+            "clock in goodput buckets summing to 100%, and tokens, device "
+            "seconds and queue wait per tenant (wire header 'tn'). Read at "
+            "construction only; off, the engine builds no books")
+define_flag("gen_ledger_records", 256,
+            "Ring capacity of finalized per-request ledger records kept per "
+            "engine (oldest evicted first). Read at engine construction, "
+            "and only while gen_ledger is on")
 
 
 # --- observability and fault injection (core/trace.py, core/fault.py) ---

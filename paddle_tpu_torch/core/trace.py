@@ -1,12 +1,16 @@
 """Flag-gated in-process span tracing — the port's copy of the part of
-``paddle_tpu/core/trace.py`` the serving engine uses. ``FLAGS_trace``
+``paddle_tpu/core/trace.py`` the serving stack uses. ``FLAGS_trace``
 defaults off; hot paths gate on ``_ACTIVE is not None`` and :func:`span`
 returns a shared no-op while tracing is off. Spans land in a bounded
 thread-safe ring buffer (``FLAGS_trace_buffer`` entries) as JSON-safe
-dicts; a span opened with a ``trace_id`` joins that trace."""
+dicts; a span opened with a ``trace_id`` joins that trace, and
+:func:`server_span` links the server half of a wire round trip to the
+client's span. :func:`snapshot` is what the wire ``trace_dump`` op
+serves; :func:`export_chrome` writes the spans as a Chrome trace."""
 
 from __future__ import annotations
 
+import json
 import random
 import threading
 import time
@@ -15,8 +19,9 @@ from typing import Any
 
 from paddle_tpu_torch.core.flags import flag
 
-__all__ = ["span", "enabled", "configure", "current", "get_spans",
-           "new_id"]
+__all__ = ["span", "server_span", "enabled", "configure", "current",
+           "get_spans", "clear", "snapshot", "new_id", "to_chrome_events",
+           "export_chrome"]
 
 
 class _Tracer:
@@ -34,6 +39,10 @@ class _Tracer:
     def spans(self) -> list[dict]:
         with self._lock:
             return list(self._buf)
+
+    def clear(self) -> None:
+        with self._lock:
+            self._buf.clear()
 
 
 _ACTIVE: _Tracer | None = None    # None == tracing fully off
@@ -157,3 +166,66 @@ def get_spans() -> list[dict]:
     """Snapshot of the ring buffer (oldest first); [] when disabled."""
     tracer = _ACTIVE
     return tracer.spans() if tracer is not None else []
+
+
+def server_span(name: str, trace_id: str | None, parent_id: str | None,
+                **attrs: Any):
+    """Open a span linked to a remote parent (the server half of a wire
+    round trip); ``trace_id=None`` (an untraced client) starts a fresh
+    trace, so a traced server still records its side."""
+    if _ACTIVE is None:
+        return _NOOP
+    return _Span(name, attrs, trace_id=trace_id, parent_id=parent_id)
+
+
+def clear() -> None:
+    tracer = _ACTIVE
+    if tracer is not None:
+        tracer.clear()
+
+
+def snapshot(clear_after: bool = False) -> dict:
+    """JSON-safe dump of the ring buffer, what the wire ``trace_dump`` op
+    serves; ``clear_after`` empties it after the copy."""
+    tracer = _ACTIVE
+    if tracer is None:
+        return {"enabled": False, "spans": []}
+    spans = tracer.spans()
+    if clear_after:
+        tracer.clear()
+    return {"enabled": True, "capacity": tracer.capacity, "spans": spans}
+
+
+def to_chrome_events(spans: list[dict], pid: int | str = 0,
+                     pid_name: str | None = None) -> list[dict]:
+    """Spans as Chrome trace events (``ph: "X"``, microseconds);
+    ``pid``/``pid_name`` group one process' spans in the viewer."""
+    events: list[dict] = []
+    if pid_name:
+        events.append({"name": "process_name", "ph": "M", "pid": pid,
+                       "tid": 0, "args": {"name": pid_name}})
+    for s in spans:
+        args = {"trace_id": s["trace_id"], "span_id": s["span_id"]}
+        if s.get("parent_id"):
+            args["parent_id"] = s["parent_id"]
+        args.update(s.get("attrs") or {})
+        events.append({
+            "name": s["name"], "ph": "X",
+            "ts": s["ts"] * 1e6, "dur": s["dur"] * 1e6,
+            "pid": pid, "tid": s["tid"], "cat": s["name"].split("/")[0],
+            "args": args})
+    return events
+
+
+def export_chrome(path: str | None = None,
+                  spans: list[dict] | None = None) -> dict:
+    """The buffered spans (or ``spans``) as a Chrome trace document,
+    loadable in ``chrome://tracing`` or Perfetto; written to ``path``
+    when given."""
+    doc = {"traceEvents": to_chrome_events(
+        get_spans() if spans is None else spans),
+        "displayTimeUnit": "ms"}
+    if path is not None:
+        with open(path, "w") as f:
+            json.dump(doc, f)
+    return doc

@@ -9,7 +9,7 @@ own into ``paddle_tpu_torch/_build/<source>-<hash>.so`` with
 
 and is loaded with ``ctypes`` (plain C entry points, pointers as
 ``c_void_p``, the stream from ``torch.cuda.current_stream().cuda_stream``).
-The hash covers the source, the shared header and the flags, so an
+The hash covers the source, the shared headers and the flags, so an
 edited source rebuilds and an unchanged one is reused. ``build()``
 starts one ``nvcc`` per source, all together, and waits for them all.
 Nothing builds at import: the first launch of a kernel builds it.
@@ -31,7 +31,8 @@ launches the card ran. A kernel's name is
 its counter's; ``SOURCES`` maps it to the ``.cu`` file that holds it
 (one source may hold several kernels, e.g. the forward and backward of
 RMSNorm, of LayerNorm, of the selective scan or of softmax
-cross-entropy, or the two layouts of decode attention).
+cross-entropy, or the two layouts of decode attention, stacked and
+paged).
 """
 
 from __future__ import annotations
@@ -72,6 +73,7 @@ SOURCES = {
     "softmax_xent_lse": "softmax_xent",
     "softmax_xent_dx": "softmax_xent",
     "paged_decode_attention": "paged_decode_attention",
+    "paged_decode_attention_int8": "paged_decode_attention",
 }
 KERNELS = tuple(SOURCES)
 LAUNCHES = {name: 0 for name in KERNELS}
@@ -81,7 +83,7 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
-_HEADERS = ("common.cuh",)
+_HEADERS = ("common.cuh", "decode_kernel.cuh")
 
 _force_reference = False
 _libs: dict[str, ctypes.CDLL] = {}

@@ -46,11 +46,22 @@ On the card in bf16, batched and solo GEMMs may pick other algorithms, so
 streams agree up to bf16 rounding.
 
 The JAX engine's speculative decoding and async dispatch (ROADMAP A2c),
-its KV store, roles, scheduler, ledger and self-healing (A2d) and its
+its KV store, roles, scheduler and self-healing (A2d) and its
 tensor-parallel mesh (A6) are not ported: their constructor arguments
 raise ``NotImplementedError`` when set. A decode-loop error breaks the
 engine (the JAX engine's default with self-healing off): every
 generation fails with the error and new starts raise.
+
+Performance attribution (``ledger=`` / ``FLAGS_gen_ledger``, off by
+default; ``serving.ledger``): every generation is stamped at the JAX
+engine's lifecycle sites (enqueue, admit, first token, done, delivered)
+and finalized once into a ``RequestLedger`` record whose phases partition
+its end-to-end latency; the loop's wall clock goes into the
+``GoodputMeter``'s buckets (prefill, decode, admission idle, and
+"recompile" for the step's CUDA graph capture, where the JAX meter books
+an XLA compile), and tokens and device seconds into the tenant book
+(``tenant=`` on :meth:`GenerationEngine.start`). With the ledger off
+every gate is one ``is None`` check.
 
 Observability: ``gen/slots_active`` / ``gen/queue_depth`` /
 ``gen/pages_free`` gauges, ``gen/prefill_s`` / ``gen/prefill_chunk_s`` /
@@ -84,14 +95,17 @@ from paddle_tpu_torch.models.generation import (advance_generator,
                                                 filter_logits,
                                                 init_paged_cache,
                                                 paged_gather, paged_scatter)
+from paddle_tpu_torch.serving.ledger import GoodputMeter, RequestLedger
 
 __all__ = ["GenerationEngine", "Generation", "EngineOverloaded",
-           "RequestQuarantined", "GenerationExpired", "EXPIRED_MARKER"]
+           "RequestQuarantined", "GenerationExpired", "EXPIRED_MARKER",
+           "QUARANTINE_MARKER"]
 
 _UNSET = object()
 
-# The prefix of a reaped generation's error, as it crosses a wire
-# (``paddle_tpu/serving/engine.py:149``)
+# The prefixes of a quarantined request's and of a reaped generation's
+# errors, as they cross a wire (``paddle_tpu/serving/engine.py:147-148``)
+QUARANTINE_MARKER = "request quarantined:"
 EXPIRED_MARKER = "generation expired:"
 
 # private shed-jitter stream: synchronized clients whose starts were all
@@ -137,7 +151,8 @@ class Generation:
                  "done", "error", "slot", "created", "last_poll",
                  "pages", "shared", "prefilling", "prefill_pos",
                  "prefill_t0", "delivered", "rng_skip", "trace_id",
-                 "generator")
+                 "generator", "tenant", "admitted_ts", "first_tok_ts",
+                 "done_ts", "chip_s", "ledgered", "queue_booked")
 
     def __init__(self, gen_id: str, prompt: np.ndarray,
                  max_new_tokens: int, temperature: float, top_k: int,
@@ -170,6 +185,17 @@ class Generation:
         self.trace_id: str | None = None
         # the request's own device generator (sampled requests only)
         self.generator: torch.Generator | None = None
+        # request-ledger books (tenant: wire header "tn"; monotonic
+        # phase stamps, 0.0 until the site runs; the device seconds
+        # attributed to it; finalized once); untouched with the ledger
+        # off
+        self.tenant: str | None = None
+        self.admitted_ts = 0.0
+        self.first_tok_ts = 0.0
+        self.done_ts = 0.0
+        self.chip_s = 0.0
+        self.ledgered = False
+        self.queue_booked = 0.0
 
 
 class _PagePool:
@@ -342,9 +368,12 @@ class GenerationEngine:
     ``prefill_chunk`` / ``prefix_cache`` default to the ``gen_paged`` /
     ``gen_page_tokens`` / ``gen_pages`` / ``gen_prefill_chunk`` /
     ``gen_prefix_cache`` flags. ``cache_dtype`` goes to ``init_cache``
-    (``torch.int8`` is the quantized cache: the contiguous engine's decode
-    kernel takes it; the paged pool's kernel is float only, and a paged
-    int8 engine on the card raises at its first step).
+    (``torch.int8`` is the quantized cache in both modes: the
+    contiguous cache's and the paged pool's decode kernels each take its
+    int8 layout, and the captured step quantizes each layer's fresh k/v
+    before its scatter). ``ledger`` (``FLAGS_gen_ledger``) turns the
+    request ledger on: True, or a ``serving.ledger.RequestLedger`` to
+    share one.
 
     The background loop starts on construction; :meth:`close` retires it.
     Only the loop thread touches the device; :meth:`start` /
@@ -389,8 +418,7 @@ class GenerationEngine:
                 _refuse(name, value, item)
         if draft_model is not None:
             _refuse("draft_model", draft_model, "A2c")
-        for name, value, fname in (("ledger", ledger, "gen_ledger"),
-                                   ("kv_store", kv_store, "gen_kv_store"),
+        for name, value, fname in (("kv_store", kv_store, "gen_kv_store"),
                                    ("sched", sched, "gen_sched")):
             if read(value, fname):
                 _refuse(name, value, "A2d")
@@ -472,6 +500,27 @@ class GenerationEngine:
         self.decode_steps = 0
         self.prefill_calls = 0
         self.prefill_calls_fresh = 0
+        # tokens emitted by batched steps and the steps, for
+        # stats()["tokens_per_step"]
+        self._emit_total = self._decode_iters = 0
+        # the device block of stats(): static for the engine's life (the
+        # cache is allocated once); the port has no mesh
+        kv_bytes = sum(c.numel() * c.element_size() for c in self._cache)
+        self._device_info = {
+            "platform": "gpu" if dev.type == "cuda" else dev.type,
+            "devices": 1, "mesh": None, "kv_bytes": kv_bytes,
+            "kv_bytes_per_device": kv_bytes}
+        # performance-attribution books, read here only (None: off). A
+        # shared RequestLedger turns them on even while it is empty (the
+        # JAX engine tests its truth, and an empty one has length 0)
+        led = read(ledger, "gen_ledger")
+        if isinstance(led, RequestLedger) or led:
+            self._ledger = (led if isinstance(led, RequestLedger)
+                            else RequestLedger(int(flag(
+                                "gen_ledger_records"))))
+            self._goodput = GoodputMeter()
+        else:
+            self._ledger = self._goodput = None
 
         self._cond = threading.Condition()
         self._queue: deque[Generation] = deque()
@@ -488,14 +537,16 @@ class GenerationEngine:
     def start(self, prompt, max_new_tokens: int, *, temperature: float = 0.0,
               top_k: int = 0, top_p: float = 1.0, eos_token_id=_UNSET,
               seed: int = 0, rng_skip: int = 0,
-              trace_id: str | None = None) -> str:
+              trace_id: str | None = None,
+              tenant: str | None = None) -> str:
         """Enqueue a generation; returns its id at once. Raises
         :class:`EngineOverloaded` (retryable) when every slot is busy and
         the queue is at ``queue_max``. ``rng_skip`` starts a sampled
         stream that many tokens in (a resumed stream's position; greedy
         requests ignore it). ``trace_id`` is the caller's stream trace
         id: with tracing on, the generation's lifecycle events record
-        under it."""
+        under it. ``tenant`` (wire header ``tn``) is the identity the
+        request ledger books the generation under."""
         prompt = np.asarray(prompt, np.int32).reshape(-1)
         if prompt.size < 1:
             raise ValueError("empty prompt")
@@ -524,6 +575,8 @@ class GenerationEngine:
         gen.rng_skip = rng_skip
         if trace_id:
             gen.trace_id = str(trace_id)
+        if tenant:
+            gen.tenant = str(tenant)
         with self._cond:
             if self._stopping:
                 raise RuntimeError("GenerationEngine is stopped")
@@ -577,6 +630,8 @@ class GenerationEngine:
                 gen.last_poll = time.monotonic()
             if gen.done:
                 gen.delivered = True
+                self._ledger_finalize(
+                    gen, "complete" if gen.error is None else "failed")
             return {"tokens": list(gen.tokens[start:]), "done": gen.done,
                     "error": gen.error,
                     "queued": gen.slot is None and not gen.done}
@@ -599,11 +654,19 @@ class GenerationEngine:
                 stat_set("gen/queue_depth", len(self._queue))
                 self._gen_event(gen, "gen/retire", reason="cancelled",
                                 tokens=len(gen.tokens))
+            # a done but undelivered generation too: a cancel is the last
+            # event this engine sees of it
+            self._ledger_finalize(gen, "cancelled")
             self._cond.notify_all()
         return True
 
     def stats(self) -> dict:
-        """Slot and page-pool occupancy snapshot."""
+        """Slot and page-pool occupancy snapshot (what the serving
+        ``health`` op ships per generator): host-side state only, never a
+        device read. ``tokens_per_step`` is the tokens emitted per batched
+        step, ``device`` the platform, device count (one; the port has no
+        mesh) and the cache's bytes; with the ledger on, ``goodput`` and
+        ``tenants`` too."""
         with self._cond:
             active = sum(g is not None for g in self._slot_gen)
             doc = {"slots": self.slots, "active": active,
@@ -620,7 +683,9 @@ class GenerationEngine:
                    "prefill_calls": self.prefill_calls,
                    "prefill_calls_fresh": self.prefill_calls_fresh,
                    "cuda_graph": self._graph is not None,
-                   "device": str(self._device)}
+                   "tokens_per_step": (self._emit_total / self._decode_iters
+                                       if self._decode_iters else 0.0),
+                   "device": dict(self._device_info)}
             if self._paged:
                 doc.update(
                     page_tokens=self._page_tokens,
@@ -628,7 +693,55 @@ class GenerationEngine:
                     pages_free=self._pool.free_count,
                     prefix_entries=(0 if self._prefix is None
                                     else len(self._prefix)))
+            if self._goodput is not None:
+                doc["goodput"] = self._goodput.snapshot()
+            if self._ledger is not None:
+                doc["tenants"] = self._ledger.tenants()
             return doc
+
+    def ledger_dump(self, limit: int | None = None) -> dict | None:
+        """Finalized per-request phase records, the tenant book and the
+        goodput snapshot (the ``ledger_dump`` wire op's per-engine
+        payload), or None with the ledger off."""
+        if self._ledger is None:
+            return None
+        return {"records": self._ledger.records(limit),
+                "tenants": self._ledger.tenants(),
+                "goodput": self._goodput.snapshot()}
+
+    def canary(self, timeout_s: float = 5.0, prompt_token: int = 1) -> dict:
+        """One-token liveness decode through the real admit, prefill and
+        sample path (``paddle_tpu/serving/engine.py:1611``): engine
+        liveness as distinct from wire liveness, which the serving
+        ``health`` op ships per generator under ``deep=True``. It goes
+        through :meth:`start` and :meth:`poll` only, so the caller's
+        thread touches no device. A full engine counts as alive
+        (``busy``); a broken or timed-out one reports ``ok=False`` with
+        the error. Returns ``{"ok", "busy", "latency_s", "error"}``."""
+        t0 = time.monotonic()
+        try:
+            gid = self.start(np.asarray([int(prompt_token)], np.int32), 1)
+        except EngineOverloaded:
+            return {"ok": True, "busy": True,
+                    "latency_s": time.monotonic() - t0, "error": None}
+        except RuntimeError as e:                   # broken or stopped
+            return {"ok": False, "busy": False,
+                    "latency_s": time.monotonic() - t0,
+                    "error": f"{type(e).__name__}: {e}"}
+        deadline = time.monotonic() + max(float(timeout_s), 0.0)
+        ok, err = False, f"canary timed out after {timeout_s:g}s"
+        try:
+            while time.monotonic() < deadline:
+                doc = self.poll(gid, wait_s=min(0.25, float(timeout_s)))
+                if doc["done"]:
+                    ok, err = doc["error"] is None, doc["error"]
+                    break
+        except (KeyError, RuntimeError) as e:
+            err = f"{type(e).__name__}: {e}"
+        finally:
+            self.cancel(gid)
+        return {"ok": ok, "busy": False,
+                "latency_s": time.monotonic() - t0, "error": err}
 
     def clear_prefix_cache(self) -> int:
         """Drop every prefix-cache entry no live generation references.
@@ -656,6 +769,7 @@ class GenerationEngine:
                     gen.slot = None
                     self._gen_event(gen, "gen/retire", reason="stopped",
                                     tokens=len(gen.tokens))
+                self._ledger_finalize(gen, "stopped")
                 gen.pages = []
             self._slot_gen = [None] * self.slots
             self._queue.clear()
@@ -693,6 +807,26 @@ class GenerationEngine:
                          **attrs):
             pass
 
+    def _ledger_finalize(self, gen: Generation, outcome: str) -> None:
+        """Finalize the generation's ledger record exactly once (lock
+        held; every retire path calls it), with a ``gen/ledger`` event
+        under the stream's trace id."""
+        if self._ledger is None or gen.ledgered:
+            return
+        gen.ledgered = True
+        rec = self._ledger.finalize(gen, outcome)
+        self._gen_event(gen, "gen/ledger", outcome=outcome,
+                        e2e_s=round(rec["e2e_s"], 6),
+                        resumed=int(gen.rng_skip > 0))
+
+    def _idle_wait(self, timeout: float) -> None:
+        """Wait on the condition (lock held), the time booked as
+        admission idle."""
+        t0 = time.perf_counter()
+        self._cond.wait(timeout=timeout)
+        if self._goodput is not None:
+            self._goodput.note("admission_idle", time.perf_counter() - t0)
+
     # -- scheduler loop ----------------------------------------------------
     def _loop(self) -> None:
         while True:
@@ -703,7 +837,7 @@ class GenerationEngine:
                         and not any(g is not None for g in self._slot_gen)):
                     # idle: wake on new work, and every 0.25 s anyway so
                     # that TTL reaping runs while nothing streams
-                    self._cond.wait(timeout=0.25)
+                    self._idle_wait(0.25)
                     if self._stopping:
                         return
             try:
@@ -717,10 +851,14 @@ class GenerationEngine:
                         # wait for a cancel/TTL/poll instead of spinning
                         with self._cond:
                             if not self._stopping:
-                                self._cond.wait(timeout=0.05)
+                                self._idle_wait(0.05)
                 else:
                     self._admit()
                     self._decode_step()
+                if self._goodput is not None:
+                    # the iteration's un-noted remainder: host-side
+                    # scheduling and bookkeeping
+                    self._goodput.tick("host_gather")
             except Exception as e:   # a device-side failure: fail loudly
                 stat_add("gen/traps")
                 self._break(e)
@@ -737,6 +875,7 @@ class GenerationEngine:
                     gen.slot = None
                     self._gen_event(gen, "gen/retire", reason="broken",
                                     tokens=len(gen.tokens))
+                self._ledger_finalize(gen, "broken")
                 gen.pages = []
             self._slot_gen = [None] * self.slots
             self._queue.clear()
@@ -789,6 +928,9 @@ class GenerationEngine:
                         self._queue.remove(g)
                     except ValueError:
                         pass
+                # done but never delivered too: the reap is the last
+                # event this engine sees of it
+                self._ledger_finalize(g, "expired")
             if expired:
                 self._cond.notify_all()
 
@@ -801,6 +943,9 @@ class GenerationEngine:
     def _admit_locked(self, gen: Generation, slot: int) -> None:
         self._slot_gen[slot] = gen
         gen.slot = slot
+        if self._ledger is not None:
+            gen.admitted_ts = time.monotonic()
+            self._ledger.book_admission(gen, gen.admitted_ts)
         stat_set("gen/slots_active",
                  sum(g is not None for g in self._slot_gen))
 
@@ -881,11 +1026,15 @@ class GenerationEngine:
         """Deliver a finished prefill's first token (lock held)."""
         gen.tokens.append(tok0)
         self._tok[slot] = tok0
+        if self._ledger is not None:
+            gen.first_tok_ts = time.monotonic()
         observe("gen/ttft_s", time.monotonic() - gen.created)
         stat_add("gen/tokens")
         if ((gen.eos_token_id is not None and tok0 == gen.eos_token_id)
                 or len(gen.tokens) >= gen.max_new_tokens):
             gen.done = True
+            if self._ledger is not None:
+                gen.done_ts = time.monotonic()
             self._gen_event(gen, "gen/retire", reason="complete",
                             tokens=len(gen.tokens))
             self._release_slot_locked(gen)
@@ -916,6 +1065,7 @@ class GenerationEngine:
             tok0 = int(_sample_slot(logits[0, T0 - 1], gen))
         self.prefill_calls += 1
         self.prefill_calls_fresh += 1
+        self._book_device(gen, "prefill", time.perf_counter() - t0)
         observe("gen/prefill_s", time.perf_counter() - t0)
         with self._cond:
             if self._slot_gen[slot] is not gen:   # cancelled mid-prefill
@@ -960,6 +1110,7 @@ class GenerationEngine:
                 del view, chunk, logits
             self.prefill_calls += 1
             self.prefill_calls_fresh += a == 0
+            self._book_device(gen, "prefill", time.perf_counter() - t0)
             observe("gen/prefill_chunk_s", time.perf_counter() - t0)
             with self._cond:
                 if self._slot_gen[slot] is not gen:
@@ -975,6 +1126,15 @@ class GenerationEngine:
                 self._pos[slot] = T0
                 self._emit_first(gen, slot, tok0)
         return bool(work)
+
+    def _book_device(self, gen: Generation | None, bucket: str,
+                     dt: float) -> None:
+        """A device section of the loop into the goodput bucket, and its
+        seconds to ``gen`` (None: nobody's) in the ledger."""
+        if self._goodput is not None:
+            self._goodput.note(bucket, dt)
+        if self._ledger is not None and gen is not None:
+            gen.chip_s += dt
 
     # -- the batched decode step --------------------------------------------
     def _step_logits(self):
@@ -1038,6 +1198,9 @@ class GenerationEngine:
             self._active_buf.copy_(torch.from_numpy(active))
             if table is not None:
                 self._pt_buf.copy_(torch.from_numpy(table))
+            # the capture is the port's compile: the goodput meter books
+            # it as the JAX meter books an XLA compile
+            capture = self._use_graph and self._graph is None
             logits = self._run_step()
             picks = torch.argmax(logits, dim=-1)
             sampled = [(s, g) for s, g in stepped if g.temperature > 0.0]
@@ -1046,7 +1209,9 @@ class GenerationEngine:
                 for s, g in sampled:
                     picks[s] = _sample_slot(logits[s], g)
             new = picks.tolist()
-        observe("gen/decode_step_s", time.perf_counter() - t0)
+        dt = time.perf_counter() - t0
+        observe("gen/decode_step_s", dt)
+        self._book_device(None, "recompile" if capture else "decode", dt)
         sample_n = (int(flag("trace_sample"))
                     if _trace._ACTIVE is not None else 0)
         with self._cond:
@@ -1055,6 +1220,10 @@ class GenerationEngine:
             for s, gen in stepped:
                 if self._slot_gen[s] is not gen:   # cancelled mid-step
                     continue
+                if self._ledger is not None:
+                    # one batched step serves every stepped slot: its
+                    # device seconds split evenly across them
+                    gen.chip_s += dt / len(stepped)
                 t = int(new[s])
                 self._tok[s] = t
                 self._pos[s] += 1
@@ -1067,12 +1236,19 @@ class GenerationEngine:
                      and t == gen.eos_token_id)
                         or len(gen.tokens) >= gen.max_new_tokens):
                     gen.done = True
+                    if self._ledger is not None:
+                        gen.done_ts = time.monotonic()
                     self._gen_event(gen, "gen/retire", reason="complete",
                                     tokens=len(gen.tokens))
                     self._release_slot_locked(gen)
+            self._emit_total += emitted
+            self._decode_iters += 1
             if emitted:
                 stat_add("gen/tokens", emitted)
             self._cond.notify_all()
         if self.step_wait_s > 0:
             time.sleep(self.step_wait_s)
+            if self._goodput is not None:
+                # a pacing gap: idle by configuration, not work
+                self._goodput.note("admission_idle", self.step_wait_s)
         return True

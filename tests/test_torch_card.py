@@ -304,6 +304,29 @@ def test_kernel_on_card(name):
                                            2).items():
                 assert not _close(bad, want), (dt, fault)
         return
+    elif name == "paged_decode_attention_int8":
+        # the int8 pool of 8-token pages (int8 k/v, fp32 scales), q in fp32
+        # and bf16, 4 slots at positions 0, a partial page, full pages and
+        # the table's end, tables scattered over the pool; planted faults
+        # (the paged ones and the int8 scales') must fail the same check
+        from paddle_tpu_torch.kernels import paged_decode_attention as PDA
+        raw = _int8_cache(g, 41, 3, 2, 8, 128)          # [41, 3, 2, 8, ...]
+        table = (torch.randperm(40, generator=g, device="cuda")
+                 .reshape(4, 10) + 1).to(torch.int32)
+        pos = torch.tensor([0, 5, 24, 80], dtype=torch.int32, device="cuda")
+        for dt in (torch.float32, torch.bfloat16):
+            q = torch.randn(4, 1, 8, 128, generator=g, device="cuda").to(dt)
+            kn, vn = (torch.randn(4, 2, 1, 128, generator=g,
+                                  device="cuda").to(dt) for _ in range(2))
+            got = PDA.paged_decode_attention(q, kn, vn, raw, table, pos, 2)
+            want = PDA.paged_decode_attention_reference(q, kn, vn, raw,
+                                                        table, pos, 2)
+            torch.cuda.synchronize()
+            assert _close(got, want), dt
+            for fault, bad in paged_faults(q, kn, vn, raw, table, pos,
+                                           2).items():
+                assert not _close(bad, want), (dt, fault)
+        return
     elif name == "decode_attention_int8":
         cache = _int8_cache(g, 3, 2, 2, 90, 128)
         q, kn, vn = rn(2, 1, 8, 128), rn(2, 2, 1, 128), rn(2, 2, 1, 128)
@@ -453,3 +476,66 @@ def test_engine_on_card(paged):
     for p, toks in zip(prompts, outs):
         ids = torch.as_tensor(p, device="cuda")[None]
         assert toks == model.generate(ids, 12)[0, len(p):].tolist()
+
+
+def test_paged_int8_engine_on_card():
+    """The paged engine on the int8 pool: its captured step quantizes
+    each layer's fresh k/v and scatters the four leaves, B10-int8 runs L a
+    step (no other decode kernel), greedy streams equal solo int8
+    ``generate`` (fp32, so the int8 arithmetic is the only rounding), and
+    the step's logits equal the same step through ``paged_gather`` and
+    per-slot B9-int8 bit for bit."""
+    import numpy as np
+
+    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+    from paddle_tpu_torch.models.generation import paged_gather
+    from paddle_tpu_torch.serving import GenerationEngine
+    _generator()
+    cfg = LlamaConfig.tiny(vocab_size=512, hidden_size=256, num_heads=2,
+                           num_kv_heads=2, max_seq_len=128)
+    model = LlamaForCausalLM(cfg, device="cuda")
+    rs = np.random.RandomState(1)
+    prefix = rs.randint(0, 512, (20,))
+    prompts = [np.concatenate([prefix, rs.randint(0, 512, (n,))])
+               for n in (3, 9)] + [rs.randint(0, 512, (n,))
+                                   for n in (5, 40, 17)]
+    _support.reset_launches()
+    with GenerationEngine(model, slots=3, max_len=96, queue_max=0,
+                          paged=True, page_tokens=8, prefill_chunk=16,
+                          cache_dtype=torch.int8) as eng:
+        assert len(eng._cache) == 4 and eng._cache[0].dtype == torch.int8
+        gids = [eng.start(p, 12) for p in prompts]
+        outs = []
+        for gid in gids:
+            toks = []
+            for _ in range(600):
+                doc = eng.poll(gid, start=len(toks), wait_s=0.1)
+                toks += doc["tokens"]
+                if doc["done"]:
+                    break
+            assert doc["done"] and doc["error"] is None
+            outs.append(toks)
+        st = eng.stats()
+        assert st["cuda_graph"] is True
+        L = cfg.num_layers
+        assert _support.LAUNCHES["paged_decode_attention_int8"] == L * (
+            st["decode_steps"] + 1)
+        for other in ("paged_decode_attention", "decode_attention",
+                      "decode_attention_int8"):
+            assert _support.LAUNCHES[other] == 0, other
+        # the step at three slots' positions against gather + B9-int8
+        eng._pos_buf.copy_(torch.tensor([7, 30, 61], dtype=torch.int32))
+        eng._tok_buf.fill_(1)
+        eng._active_buf.fill_(True)
+        eng._pt_buf.copy_(torch.arange(1, 3 * 12 + 1).reshape(3, 12))
+        b10 = eng._step_logits()
+        view = tuple(torch.stack([paged_gather(eng._cache, r)[i][:, 0]
+                                  for r in eng._pt_buf], 1)
+                     for i in range(4))
+        gb9 = model.forward_with_cache(eng._tok_buf, view,
+                                       eng._pos_buf)[0][:, -1]
+        assert torch.equal(b10, gb9)
+    for p, toks in zip(prompts, outs):
+        ids = torch.as_tensor(p, device="cuda")[None]
+        assert toks == model.generate(ids, 12, cache_dtype=torch.int8)[
+            0, len(p):].tolist()

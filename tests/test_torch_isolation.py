@@ -32,7 +32,10 @@ def test_import_pulls_in_no_jax():
     code = ("import sys, paddle_tpu_torch, paddle_tpu_torch.models, "
             "paddle_tpu_torch.bridge, paddle_tpu_torch.kernels, "
             "paddle_tpu_torch.optimizer, paddle_tpu_torch.distributed, "
-            "paddle_tpu_torch.core, paddle_tpu_torch.serving\n"
+            "paddle_tpu_torch.core, paddle_tpu_torch.serving, "
+            "paddle_tpu_torch.io, paddle_tpu_torch.core.wire, "
+            "paddle_tpu_torch.serving.ledger, "
+            "paddle_tpu_torch.serving.replica_main\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r})\n"
             "print(','.join(bad))")
@@ -168,3 +171,40 @@ def test_engine_raises_without_cuda_by_default():
     from paddle_tpu_torch.serving import GenerationEngine
     with pytest.raises(RuntimeError):
         GenerationEngine(LlamaForCausalLM(LlamaConfig.tiny()), slots=1)
+
+
+def test_server_slice_modules_are_covered():
+    """The frame protocol, the server and client, the request ledger and
+    the replica are among the files the source check reads, and B10-int8
+    has its counter in the paged decode source."""
+    names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
+    for rel in ("core/wire.py", "io/__init__.py", "io/serving.py",
+                "serving/ledger.py", "serving/replica_main.py"):
+        assert f"paddle_tpu_torch/{rel}" in names, rel
+    assert _support.SOURCES["paged_decode_attention_int8"] == \
+        "paged_decode_attention"
+    assert "ptt_paged_decode_attention_int8" in (
+        _support.CSRC / "paged_decode_attention.cu").read_text()
+
+
+def test_server_entry_points_run_on_the_card_by_default():
+    """A server's generator builds on its model's device: a default-device
+    model raises without a GPU before any engine or server serves."""
+    if torch.cuda.is_available():
+        pytest.skip("this host has a GPU: the default device is valid")
+    from paddle_tpu_torch.io import InferenceServer
+    srv = InferenceServer()
+    with pytest.raises(RuntimeError):
+        srv.add_generator("g", LlamaForCausalLM(LlamaConfig.tiny()),
+                          slots=1)
+    srv.stop()
+
+
+def test_chip_smoke_names_every_kernel():
+    """``chip_smoke.py``'s JSON line gives every counter the TPU kernel it
+    replaces (a kernel without one would end the card's run in a
+    KeyError)."""
+    import chip_smoke
+    assert set(chip_smoke.REPLACES) == set(_support.KERNELS)
+    assert all(v.startswith("paddle_tpu/ops/pallas/")
+               for v in chip_smoke.REPLACES.values())

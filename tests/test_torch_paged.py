@@ -201,15 +201,99 @@ def test_paged_plain_selects_layer_and_honors_indirection(layer):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
 
 
-def test_paged_int8_pool_has_no_kernel(monkeypatch):
-    """Where kernels would launch, the int8 pool raises (B10-int8 is not
-    ported); its plain version runs on CPU tensors."""
+@pytest.mark.parametrize("pos", [(1, 40, 100), (0, 33, 127)])
+def test_paged_int8_bf16_matches_pallas_interpret(pos):
+    """B10-int8 in bf16: the probabilities times the v scale are rounded
+    to bf16 before the product with v, in the port's plain version and in
+    the Pallas kernel (interpret mode). Held at two bf16 ulps of the
+    output (2^-7 relative plus 2^-7 of the largest value), as
+    ``test_int8_decode_bf16_matches_pallas`` holds B9-int8: the fp32 sums
+    run in another order, the Pallas kernel takes each page's
+    probabilities against that page's running maximum, and the output is
+    rounded to bf16."""
+    q, kn, vn, pool, table = _b10_inputs(P=32, quant=True, seed=6)
+    pos = np.asarray(pos, np.int32)
+    qb, knb, vnb = (_t(a).bfloat16() for a in (q, kn, vn))
+    got = PDA.paged_decode_attention(qb, knb, vnb, tuple(map(_t, pool)),
+                                     _t(table), _t(pos), 1,
+                                     scale=0.125).float().numpy()
+    with jax_support.force_dispatch():
+        want = jax_pdk.paged_decode_attention(
+            *(jnp.asarray(a.float().numpy(), jnp.bfloat16)
+              for a in (qb, knb, vnb)), tuple(map(jnp.asarray, pool)),
+            jnp.asarray(table), jnp.int32(1), jnp.asarray(pos), scale=0.125)
+    want = np.asarray(want.astype(jnp.float32))
+    np.testing.assert_allclose(got, want, rtol=2 ** -7,
+                               atol=2 ** -7 * np.abs(want).max())
+
+
+def _fake_launch(monkeypatch):
+    """Kernels 'launch' on CPU tensors: ``use_kernel`` True, the int8
+    entry a recorder (returns 0, cudaSuccess), the stream 0."""
+    calls = []
     monkeypatch.setattr(_support, "use_kernel", lambda x: True)
+    monkeypatch.setattr(_support, "stream_of", lambda t: 0)
+    monkeypatch.setattr(PDA, "_int8_entry",
+                        lambda: lambda *a: calls.append(a) or 0)
+    monkeypatch.setattr(PDA, "_entry", lambda: pytest.fail(
+        "the int8 pool launched the float kernel"))
+    return calls
+
+
+def test_paged_int8_pool_launches_its_kernel(monkeypatch):
+    """On a tensor that takes the kernel, the int8 pool goes to
+    ``ptt_paged_decode_attention_int8``: q, the fresh k/v, the int8 k/v
+    and the two fp32 scale leaves read in place, the table and positions,
+    then the sizes, layer, scale, type code and stream; its own counter
+    counts it, the float one does not."""
+    calls = _fake_launch(monkeypatch)
     q, kn, vn, pool, table = _b10_inputs(quant=True)
-    with pytest.raises(NotImplementedError, match="B10-int8"):
-        PDA.paged_decode_attention(_t(q), _t(kn), _t(vn),
-                                   tuple(map(_t, pool)), _t(table),
-                                   _t(np.asarray([3, 4, 5], np.int32)), 0)
+    tpool, ttable = tuple(map(_t, pool)), _t(table)
+    pos = _t(np.asarray([3, 4, 5], np.int32))
+    _support.reset_launches()
+    out = PDA.paged_decode_attention(_t(q), _t(kn), _t(vn), tpool, ttable,
+                                     pos, 1, scale=0.125)
+    assert out.shape == (3, 1, 4, 64) and out.dtype == torch.float32
+    (args,) = calls
+    assert args[3:7] == tuple(t.data_ptr() for t in tpool)
+    assert args[7:9] == (ttable.data_ptr(), pos.data_ptr())
+    assert args[9] == out.data_ptr()
+    # B, Hq, Hkv, L, P, M, D, layer, scale, dtype code, stream
+    assert args[10:] == (3, 4, 2, 2, 8, 4, 64, 1, 0.125, 0, 0)
+    assert _support.LAUNCHES["paged_decode_attention_int8"] == 1
+    assert _support.LAUNCHES["paged_decode_attention"] == 0
+
+
+@pytest.mark.parametrize("fault,err", [
+    ("fresh k/v bf16", TypeError), ("table int64", TypeError),
+    ("pos int64", TypeError), ("scales not contiguous", ValueError),
+    ("k pool not contiguous", ValueError), ("scales fp64", ValueError),
+    ("scales per page", ValueError)])
+def test_paged_int8_wrapper_refuses_bad_arguments(monkeypatch, fault, err):
+    """The int8 launch's type and contiguity checks (the kernel reads the
+    pool and its scales in place): nothing launches."""
+    calls = _fake_launch(monkeypatch)
+    q, kn, vn, pool, table = _b10_inputs(quant=True)
+    q, kn, vn, table = _t(q), _t(kn), _t(vn), _t(table)
+    pool = list(map(_t, pool))
+    pos = _t(np.asarray([3, 4, 5], np.int32))
+    if fault == "fresh k/v bf16":
+        kn = kn.bfloat16()
+    elif fault == "table int64":
+        table = table.long()
+    elif fault == "pos int64":
+        pos = pos.long()
+    elif fault == "scales not contiguous":
+        pool[2] = pool[2].transpose(2, 3).contiguous().transpose(2, 3)
+    elif fault == "k pool not contiguous":
+        pool[0] = pool[0].transpose(3, 4).contiguous().transpose(3, 4)
+    elif fault == "scales fp64":
+        pool[3] = pool[3].double()
+    else:
+        pool[2] = pool[2][..., :1]
+    with pytest.raises(err):
+        PDA.paged_decode_attention(q, kn, vn, tuple(pool), table, pos, 0)
+    assert not calls
 
 
 # ------------------------------------------------------- per-slot B9
@@ -265,18 +349,20 @@ def pair():
     return jm, tm
 
 
-def _prefilled(jm, tm, lens, S):
+def _prefilled(jm, tm, lens, S, quant=False):
     """A stacked port cache [L, B, ...] and a JAX slot cache [B, L, 1, ...]
-    each slot prefilled with its own prompt of ``lens[b]`` tokens."""
+    each slot prefilled with its own prompt of ``lens[b]`` tokens (the
+    int8 layout with ``quant``)."""
     rs = np.random.RandomState(7)
-    tc = tm.init_cache(len(lens), S)
+    tc = tm.init_cache(len(lens), S, dtype=torch.int8 if quant else None)
     jslots = []
     for b, n in enumerate(lens):
         ids = rs.randint(0, 256, (1, n)).astype(np.int32)
         tm.forward_with_cache(_t(ids).long(), tuple(c[:, b:b + 1]
                                                     for c in tc), 0)
-        _, jc = jm.forward_with_cache(jnp.asarray(ids), jm.init_cache(1, S),
-                                      0)
+        _, jc = jm.forward_with_cache(
+            jnp.asarray(ids), jm.init_cache(1, S, dtype=jnp.int8 if quant
+                                            else None), 0)
         jslots.append(jc)
     jcache = jax.tree_util.tree_map(lambda *xs: jnp.stack(xs), *jslots)
     return tc, jcache
@@ -311,13 +397,30 @@ def test_paged_step_matches_vmapped_gather_forward_scatter(pair):
     slot on the null page) against the JAX engine's paged step:
     ``paged_gather`` → ``forward_with_cache`` per slot under ``vmap``, the
     new position scattered back outside it (``engine.py:939-966``)."""
-    jm, tm = pair
+    _paged_step_vs_jax(*pair, quant=False)
+
+
+def test_paged_int8_step_matches_vmapped_gather_forward_scatter(pair):
+    """The same step on the int8 pool (four leaves): B10-int8's plain
+    version, each layer's fresh k/v quantized (``_quant_chunk``) and the
+    int8 k/v and both scale leaves scattered to ``table[pos // P]`` at
+    ``pos % P``, the inactive slot's to the null page only."""
+    before, after = _paged_step_vs_jax(*pair, quant=True)
+    # the write: exactly the active slots' positions (slot 0 at 3 on page
+    # 4, slot 2 at 14 on page 1 at offset 6), on every leaf
+    for a, b in zip(after, before):
+        diff = (a != b).movedim(3, 1).reshape(a.shape[0], a.shape[3], -1)
+        pages = {tuple(x) for x in torch.nonzero(diff.any(-1)).tolist()}
+        assert {(p, o) for p, o in pages if p} == {(4, 3), (1, 6)}
+
+
+def _paged_step_vs_jax(jm, tm, quant):
     P, M, S = 8, 3, 24
     lens = (3, 9, 14)
-    tc, _ = _prefilled(jm, tm, lens, S)
+    tc, _ = _prefilled(jm, tm, lens, S, quant)
     # the prefilled slots' positions written into pages of a pool
     table = np.asarray([[4, 0, 0], [2, 7, 0], [9, 1, 5]], np.int32)
-    proto = tm.init_cache(1, S)
+    proto = tm.init_cache(1, S, dtype=torch.int8 if quant else None)
     tpool = port_gen.init_paged_cache(proto, 10, P)
     for b, n in enumerate(lens):
         chunk = tuple(c[:, b:b + 1, :, :n] for c in tc)
@@ -340,6 +443,7 @@ def test_paged_step_matches_vmapped_gather_forward_scatter(pair):
                       jnp.asarray(table)[jnp.arange(3), pos // P], 0)
     jpool = tuple(buf.at[pages, :, :, pos % P].set(n)
                   for buf, n in zip(jpool, new))
+    before = tuple(p.clone() for p in tpool)
     kv = port_common.PagedKV(tpool, _t(table), _t(active))
     logits, _ = tm.forward_with_cache(_t(tok)[:, None].long(), kv, _t(pos))
     np.testing.assert_allclose(logits[:, -1].numpy(), np.asarray(want),
@@ -348,6 +452,7 @@ def test_paged_step_matches_vmapped_gather_forward_scatter(pair):
         live = [p for p in range(1, 11)]         # the null page is garbage
         np.testing.assert_allclose(a[live].numpy(), np.asarray(b)[live],
                                    **TOL)
+    return before, tpool
 
 
 # ------------------------------------------- the chunk arm at index > 0
